@@ -1,0 +1,20 @@
+"""moonshot-v1-16b-a3b [moe] — kimi/moonlight, 64 experts top-6.
+[hf:moonshotai/Moonlight-16B-A3B; hf]
+48L d_model=2048 16H kv=16 expert d_ff=1408 vocab=163840, MoE 64e top-6."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="moonshot-v1-16b-a3b",
+    family="moe",
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    d_ff=0,  # every MLP is MoE
+    vocab=163840,
+    n_experts=64,
+    top_k=6,
+    expert_d_ff=1408,
+    moe_every=1,
+)

@@ -1,0 +1,169 @@
+"""The port's CodedTrainer against the JAX package's, end to end.
+
+Reduced smollm-360m (f32), heter_aware, m=4, one faulted worker per step
+(``--straggler fault``), 4 steps, at equal converted weights: the control
+plane metrics of every step are equal and the loss agrees to rtol 1e-4.
+The port runs its main path, the ``spmd`` backend; the JAX trainer runs
+its default ``fused`` backend (its spmd backend needs m devices).  Also:
+the port's launcher runs to its JSON summary on the CPU, and neither its
+modules, ``chip_smoke.py`` nor its main path load ``jax`` or ``repro``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import CodingConfig as JCodingConfig
+from repro.configs import TrainConfig as JTrainConfig
+from repro.configs import get_config as jget_config
+from repro.core.straggler import FixedDelayStragglers as JDelay
+from repro.data.pipeline import SyntheticData as JData
+from repro.models.lm import build_model as jbuild
+from repro.train.trainer import CodedTrainer as JTrainer
+from repro_torch.configs import CodingConfig, TrainConfig, get_config
+from repro_torch.core.straggler import FixedDelayStragglers
+from repro_torch.data.pipeline import SyntheticData
+from repro_torch.models.lm import build_model, params_from_numpy
+from repro_torch.optim.adam import adamw_init
+from repro_torch.train.trainer import CodedTrainer, TrainerState
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+M, STEPS, SEQ = 4, 4, 16
+EQUAL = ("sim_iter_time", "n_stragglers", "n_used", "decode_residual", "exact_fraction",
+         "exact", "skipped")
+
+
+def _trainer_kwargs():
+    return dict(m=M, part_mb=2, true_speeds=np.linspace(1.0, 2.0, M), rng=0)
+
+
+def test_trainer_metrics_match_jax_trainer():
+    tc_kw = dict(lr=1e-3, warmup_steps=1, total_steps=STEPS, seed=0)
+    jcfg = jget_config("smollm-360m").reduced()
+    jtr = JTrainer(jbuild(jcfg), JCodingConfig(scheme="heter_aware", s=1),
+                   JTrainConfig(**tc_kw), straggler_model=JDelay(s=1, delay=np.inf),
+                   **_trainer_kwargs())
+    jstate = jtr.init_state(jax.random.PRNGKey(0))
+    ttr = CodedTrainer(build_model(get_config("smollm-360m").reduced()),
+                       CodingConfig(scheme="heter_aware", s=1), TrainConfig(**tc_kw),
+                       straggler_model=FixedDelayStragglers(s=1, delay=np.inf),
+                       backend="spmd", device="cpu", **_trainer_kwargs())
+    params = params_from_numpy(jax.tree.map(np.asarray, jstate.params))
+    tstate = TrainerState(params=params, opt=adamw_init(params), step=0)
+    jdata = JData(jcfg, k=jtr.k, part_mb=2, seq_len=SEQ, seed=0)
+    tdata = SyntheticData(ttr.model.cfg, k=ttr.k, part_mb=2, seq_len=SEQ, seed=0)
+    assert ttr.k == jtr.k and ttr.n_slots == jtr.n_slots
+    for step in range(STEPS):
+        jstate, jm = jtr.step(jstate, jdata.batch(step))
+        tstate, tm = ttr.step(tstate, tdata.batch(step))
+        for key in EQUAL:
+            assert tm[key] == jm[key], (step, key, tm[key], jm[key])
+        assert tm["n_stragglers"] == 1.0 and tm["skipped"] == 0.0
+        np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=1e-4)
+        np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"], rtol=1e-4)
+        assert tstate.step == jstate.step
+
+
+class _JToy:
+    def weighted_loss(self, params, batch):
+        import jax.numpy as jnp
+
+        pred = jnp.tanh(batch["x"] @ params["w1"]) @ params["w2"]
+        return jnp.sum((pred[:, 0] - batch["y"]) ** 2 * batch["weight"])
+
+
+class _TToy:
+    def weighted_loss(self, params, batch):
+        pred = torch.tanh(batch["x"] @ params["w1"]) @ params["w2"]
+        return ((pred[:, 0] - batch["y"]) ** 2 * batch["weight"]).sum()
+
+
+def _toy_batch(k, step):
+    r = np.random.default_rng(1000 + step)
+    return {"x": r.normal(size=(k, 2, 4)).astype(np.float32),
+            "y": r.normal(size=(k, 2)).astype(np.float32)}
+
+
+def test_trainer_membership_churn_matches_jax_trainer():
+    """Scheduled leave and join events drive the port's elastic controller
+    and engine hooks through the same transitions as the JAX trainer's."""
+    from repro.core.simulator import ChurnSchedule as JChurn
+    from repro.core.simulator import MembershipEvent as JEvent
+    from repro.train.engine import TrainerState as JState
+    from repro.optim.adam import adamw_init as jadamw_init
+    from repro_torch.core.simulator import ChurnSchedule, MembershipEvent
+
+    events = [dict(step=2, leave=(1,)), dict(step=4, join_speeds=(1.5,))]
+    tc_kw = dict(lr=1e-2, warmup_steps=2, total_steps=8)
+    common = dict(m=M, part_mb=2, true_speeds=np.array([1.0, 2.0, 3.0, 4.0]), rng=3,
+                  comm_time=0.01)
+    jtr = JTrainer(_JToy(), JCodingConfig(scheme="heter_aware", s=1), JTrainConfig(**tc_kw),
+                   straggler_model=JDelay(s=1, delay=2.0),
+                   churn=JChurn([JEvent(**e) for e in events]), **common)
+    ttr = CodedTrainer(_TToy(), CodingConfig(scheme="heter_aware", s=1), TrainConfig(**tc_kw),
+                       straggler_model=FixedDelayStragglers(s=1, delay=2.0),
+                       churn=ChurnSchedule([MembershipEvent(**e) for e in events]),
+                       backend="spmd", device="cpu", **common)
+    r = np.random.default_rng(0)
+    p = {"w1": r.normal(size=(4, 8)).astype(np.float32),
+         "w2": r.normal(size=(8, 1)).astype(np.float32)}
+    jp = jax.tree.map(jax.numpy.asarray, p)
+    jstate = JState(params=jp, opt=jadamw_init(jp), step=0)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    tstate = TrainerState(params=tp, opt=adamw_init(tp), step=0)
+    for step in range(6):
+        batch = _toy_batch(jtr.k, step)
+        jstate, jm = jtr.step(jstate, batch)
+        tstate, tm = ttr.step(tstate, batch)
+        for key in (*EQUAL, "membership_epoch", "m", "moved_partitions"):
+            assert tm.get(key) == jm.get(key), (step, key, tm.get(key), jm.get(key))
+        np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=1e-5)
+    assert ttr.m == jtr.m == 4 and ttr.elastic.membership_epoch == 2
+
+
+def test_launcher_runs_on_cpu(capsys):
+    from repro_torch.launch.train import main
+
+    out = main(["--arch", "smollm-360m", "--reduced", "--backend", "spmd", "--m", "4",
+                "--straggler", "fault", "--steps", "2", "--seq-len", "16", "--device", "cpu"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary == out["summary"]
+    assert summary["steps_run"] == 2 and np.isfinite(summary["final_loss"])
+    assert all(h["n_used"] >= 2 and h["exact"] == 1.0 for h in out["history"])
+
+
+def test_launcher_without_a_card_exits_with_an_error(monkeypatch):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(train.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        train.main(["--arch", "smollm-360m", "--reduced", "--steps", "1"])
+
+
+def test_main_path_never_loads_jax_or_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import chip_smoke, repro_torch\n"
+        "for mod in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "from repro_torch.launch.train import main\n"
+        "main(['--arch', 'smollm-360m', '--reduced', '--backend', 'spmd', '--m', '4',\n"
+        "      '--straggler', 'fault', '--steps', '1', '--seq-len', '8', '--device', 'cpu'])\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
