@@ -11,9 +11,13 @@ Three implementations of the same math:
 3. :func:`faithful_spmd_step` — the wire protocol: each worker flattens its
    per-slot gradients into an f32 (n_slots, D) stack and encodes them with
    one ``coded_reduce`` launch; the master decode Σ_w (a_w/k)·g̃_w is one
-   more ``coded_reduce`` launch over the (m, D) coded stack.  The JAX
-   package runs the workers as a ``shard_map`` over m devices with a psum
-   decode; here one process runs the m workers in turn on one device.
+   more ``coded_reduce`` launch over the (m, D) coded stack.  With
+   ``compress`` the wire is int8 with per-worker error feedback, encoded by
+   the fused ``coded_encode_int8`` kernel and decoded straight off the int8
+   payloads (``wire_kernel``), or by ``coded_reduce`` and the plain
+   quantize.  The JAX package runs the workers as a ``shard_map`` over m
+   devices with a psum (or int8 all_gather) decode; here one process runs
+   the m workers in turn on one device.
 
 The numpy half (:class:`CodedPlan`, :func:`make_plan`, the host slot
 weights) is a copy of the JAX module's; the ``*_device`` functions are its
@@ -31,6 +35,8 @@ import torch
 from repro_torch.core.coding import CodingScheme
 from repro_torch.core.decoding import Decoder
 from repro_torch.kernels.coded_reduce import coded_reduce
+from repro_torch.kernels.ref import dequantize, quantize_int8
+from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
 
 __all__ = [
     "CodedPlan",
@@ -45,6 +51,7 @@ __all__ = [
     "protocol_reference",
     "fused_coded_value_and_grad",
     "faithful_spmd_step",
+    "remap_err_rows",
     "FlatView",
 ]
 
@@ -166,6 +173,24 @@ def pack_coded_batch(partition_batch: Batch, slot_pids: torch.Tensor) -> Batch:
         key: x.reshape(x.shape[0], -1).index_select(0, idx).reshape((m, n) + tuple(x.shape[1:]))
         for key, x in partition_batch.items()
     }
+
+
+def remap_err_rows(err: torch.Tensor, old_of_new: Sequence[int | None]) -> torch.Tensor:
+    """Per-worker wire-state row remap for a membership transition.
+
+    ``err`` is the spmd backend's (m_old, width) error-feedback buffer;
+    ``old_of_new[i]`` is the old index that became new worker ``i``, or
+    None for a joiner.  Retained workers keep their accumulated residual
+    row (gathered on the buffer's device), while joiners (and the rows of
+    departed workers) start from zero: a leaver's residual encodes
+    coefficients that no longer exist in the remapped B."""
+    m_old = int(err.shape[0])
+    idx = np.array([m_old if o is None else int(o) for o in old_of_new], np.int64)
+    if np.any((idx < 0) | (idx > m_old)):
+        raise ValueError(f"row map {list(old_of_new)} out of range for m_old={m_old}")
+    padded = torch.cat([err, torch.zeros((1,) + tuple(err.shape[1:]), dtype=err.dtype,
+                                         device=err.device)])
+    return padded.index_select(0, torch.as_tensor(idx, device=err.device))
 
 
 # ---------------------------------------------------------------------------
@@ -304,32 +329,70 @@ def faithful_spmd_step(
     slot_batch: Batch,
     coeff: torch.Tensor,
     a: torch.Tensor,
+    err: torch.Tensor | None = None,
     view: FlatView | None = None,
-) -> torch.Tensor:
+    *,
+    compress: bool = False,
+    wire_kernel: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Per-worker flat encode and the master decode, on one device.
 
     ``slot_batch`` leaves are (m, n_slots, mb, ...); ``coeff`` (m, n_slots)
     holds the effective B coefficients (slot mask and any partial-work
     support folded in); ``a`` (m,) is the decode vector already scaled by
     1/k.  Worker w takes the gradient of every slot in the parameters'
-    dtype, ravels it into an f32 (n_slots, D) stack and encodes
-    g̃_w = Σ_s coeff[w,s]·g_s with ONE ``coded_reduce`` launch; the decode
-    Σ_w a_w·g̃_w is one more launch over the (m, D) coded stack, so a step
-    makes m+1 launches.  Every worker is encoded, a faulted one too: its
-    zero decode coefficient drops it, and a NaN coefficient poisons the
-    result, as in the JAX psum.  Returns the decoded f32 (D,) vector."""
+    dtype and ravels it into an f32 (n_slots, D) stack.  Every worker is
+    encoded, a faulted one too: its zero decode coefficient drops it, and a
+    NaN coefficient poisons the result, as in the JAX psum.
+
+    Uncompressed: g̃_w = Σ_s coeff[w,s]·g_s is ONE ``coded_reduce`` launch
+    and the decode Σ_w a_w·g̃_w one more over the (m, D) coded stack, so a
+    step makes m+1 launches; ``err`` is passed through untouched.
+
+    ``compress``: ``err`` is the (m, D) f32 per-worker error-feedback
+    buffer, UPDATED IN PLACE.  With ``wire_kernel`` worker w is one
+    ``coded_encode_int8`` launch (reduce, + err, int8 quantize, residual
+    into ``err[w]``), its q stacked into an (m, D) int8 buffer, and the
+    decode is one ``coded_decode_int8`` launch under ws = a·scale: m
+    encode launches and 1 decode launch a step.  Without it the encode is
+    ``coded_reduce``, then ``+ err``, ``quantize_int8``, ``dequantize`` and
+    the residual in plain torch (the JAX package's unfused wire), and the
+    decode one ``coded_reduce`` over the (m, D) dequantized stack.
+
+    Returns ``(decoded f32 (D,), err)``."""
     view = view if view is not None else FlatView(params)
     m, n_slots = coeff.shape
     dev = coeff.device
+    if compress and (err is None or tuple(err.shape) != (m, view.size)):
+        raise ValueError(f"compress needs an ({m}, {view.size}) f32 err buffer")
+    fused_wire = compress and wire_kernel
     grad = _grad_fn(loss_fn)
     gstack = torch.empty((n_slots, view.size), dtype=torch.float32, device=dev)
-    coded = torch.empty((m, view.size), dtype=torch.float32, device=dev)
+    if fused_wire:
+        q_all = torch.empty((m, view.size), dtype=torch.int8, device=dev)
+        scales = torch.empty((m,), dtype=torch.float32, device=dev)
+    else:
+        coded = torch.empty((m, view.size), dtype=torch.float32, device=dev)
     for w in range(m):
         for s in range(n_slots):
             _, g = grad(params, {key: x[w, s] for key, x in slot_batch.items()})
             view.write(gstack[s], g)
             del g
-        coded_reduce(gstack, coeff[w].contiguous(), torch.float32, out=coded[w])
+        cw = coeff[w].contiguous()
+        if fused_wire:
+            _, scale, _ = coded_encode_int8(gstack, cw, err[w], out_err=err[w], out_q=q_all[w])
+            scales[w] = scale
+            continue
+        coded_reduce(gstack, cw, torch.float32, out=coded[w])
+        if compress:
+            # the flat g̃_w is what travels: int8 quantize + error feedback
+            # apply to it wholesale
+            cwire = coded[w].add_(err[w])
+            deq = dequantize(*quantize_int8(cwire))
+            torch.sub(cwire, deq, out=err[w])
+            cwire.copy_(deq)
+            del deq
     del gstack
-    return coded_reduce(coded, a.float().contiguous(), torch.float32)
-
+    if fused_wire:
+        return coded_decode_int8(q_all, a.float() * scales), err
+    return coded_reduce(coded, a.float().contiguous(), torch.float32), err

@@ -7,38 +7,20 @@ on a CPU tensor it runs :func:`coded_reduce_torch`, the plain PyTorch
 version of the same function.  There is no fallback between the two: a
 CUDA tensor launches the kernel or raises.
 
-The kernel is built at first use with ``nvcc`` into
-``build/repro_torch_kernels/`` at the repository root, keyed by a hash of
-the source and flags, and bound with ``ctypes`` through a plain C
-interface.
+The kernel is built at first use by :mod:`repro_torch.kernels.build` and
+bound with ``ctypes`` through a plain C interface.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
-__all__ = [
-    "coded_reduce",
-    "coded_reduce_torch",
-    "build_coded_reduce",
-    "BUILD_INFO",
-]
+from repro_torch.kernels.build import library
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "coded_reduce.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+__all__ = ["coded_reduce", "coded_reduce_torch"]
+
 # dtype codes of the C interface (csrc/coded_reduce.cu)
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_DTYPES = {
@@ -47,11 +29,7 @@ _OUT_DTYPES = {
     torch.int8: (torch.float32,),
 }
 
-_lib = None
-_lib_lock = threading.Lock()
-# filled by the first build in this process: path, seconds, nvcc's -Xptxas -v
-# report (registers, spills), or cached=True when an earlier build was reused
-BUILD_INFO: dict = {}
+_bound: ctypes.CDLL | None = None
 
 
 def coded_reduce_torch(
@@ -63,49 +41,11 @@ def coded_reduce_torch(
     return (w.float()[:, None] * g.float()).sum(0).to(out_dtype)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot build coded_reduce")
-
-
-def build_coded_reduce() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SRC.read_bytes()
-        key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        out_dir = _BUILD_DIR
-        out_dir.mkdir(parents=True, exist_ok=True)
-        so = out_dir / f"coded_reduce_{key}.so"
-        report = so.with_suffix(".ptxas.txt")  # nvcc's -Xptxas -v output
-        if so.exists():
-            ptxas = report.read_text() if report.exists() else ""
-            BUILD_INFO.update(path=str(so), seconds=0.0, ptxas=ptxas, cached=True)
-        else:
-            tmp = out_dir / f".coded_reduce_{key}.{os.getpid()}.so"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) on {_SRC}:\n{proc.stderr}"
-                )
-            report.write_text(proc.stderr)
-            os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-            BUILD_INFO.update(
-                path=str(so), seconds=time.perf_counter() - t0,
-                ptxas=proc.stderr, cached=False,
-            )
-        lib = ctypes.CDLL(str(so))
+def _lib() -> ctypes.CDLL:
+    """The built library, its C signatures bound once."""
+    global _bound
+    if _bound is None:
+        lib = library("coded_reduce")
         lib.coded_reduce_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong,
@@ -114,12 +54,12 @@ def build_coded_reduce() -> ctypes.CDLL:
         lib.coded_reduce_launch.restype = ctypes.c_int
         lib.coded_reduce_max_rows.argtypes = []
         lib.coded_reduce_max_rows.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        _bound = lib
+    return _bound
 
 
 def _launch(g: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
-    lib = build_coded_reduce()
+    lib = _lib()
     P, D = g.shape
     if P > lib.coded_reduce_max_rows():
         raise ValueError(f"coded_reduce takes at most {lib.coded_reduce_max_rows()} rows, got {P}")

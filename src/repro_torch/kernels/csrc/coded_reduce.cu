@@ -25,12 +25,16 @@
 // Every row is multiplied in, whatever its weight: a NaN weight must give
 // NaN where it multiplies (the trainer's poisoned-payload contract), and
 // 0 * NaN = NaN is kept.  The kernel allocates nothing and launches on the
-// caller's stream; the launch error is returned to the caller.
+// caller's stream; the launch error is returned to the caller.  The loop
+// over P lives in coded_accum.cuh, shared with the fused int8 encode
+// (wire_encode.cu), so both sum in one order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "coded_accum.cuh"
 
 namespace {
 
@@ -39,10 +43,6 @@ constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks per SM on H100
 
 // dtype codes shared with the Python wrapper
 enum : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename OutT>
 __device__ __forceinline__ OutT from_f32(float x);
@@ -67,21 +67,7 @@ coded_reduce_kernel(const T* __restrict__ g, const float* __restrict__ w,
        v < n_work; v += stride) {
     const long long col = v * VEC;
     float acc[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = 0.0f;
-    const T* src = g + col;
-    for (int p = 0; p < P; ++p, src += D) {
-      const float wp = w_s[p];
-      if constexpr (VEC == 1) {
-        acc[0] = fmaf(wp, to_f32(__ldg(src)), acc[0]);
-      } else {
-        static_assert(VEC * sizeof(T) == 16, "one 16-byte load per row");
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-        const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[j] = fmaf(wp, to_f32(vals[j]), acc[j]);
-      }
-    }
+    coded_accum::accumulate<T, VEC>(g + col, w_s, P, D, acc);
     if constexpr (VEC == 1) {
       out[col] = from_f32<OutT>(acc[0]);
     } else {
@@ -125,7 +111,7 @@ cudaError_t launch_typed(const void* g, const float* w, void* out, int P, long l
 extern "C" {
 
 // Largest P the kernel takes: the weights live in 48 KiB of shared memory.
-int coded_reduce_max_rows() { return 48 * 1024 / static_cast<int>(sizeof(float)); }
+int coded_reduce_max_rows() { return coded_accum::kMaxRows; }
 
 // g: (P, D) contiguous, dtype in_code; w: (P,) f32; out: (D,) dtype out_code.
 // out_code is f32 or in_code (int8 input takes f32 output only).

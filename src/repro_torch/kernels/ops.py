@@ -11,22 +11,43 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import wire
 from repro_torch.kernels.coded_reduce import coded_reduce as _coded_reduce_kernel
 from repro_torch.kernels.coded_reduce import coded_reduce_torch
 
 IMPLS = ("cuda", "torch")
 
 
+def _resolve(impl: str | None, x: torch.Tensor) -> str:
+    if impl is None:
+        return "cuda" if x.is_cuda else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    return impl
+
+
 def coded_reduce(
     g: torch.Tensor, w: torch.Tensor, impl: str | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    if impl is None:
-        impl = "cuda" if g.is_cuda else "torch"
-    if impl == "torch":
+    if _resolve(impl, g) == "torch":
         return coded_reduce_torch(g, w, out_dtype)
-    if impl == "cuda":
-        if not g.is_cuda:
-            raise ValueError("impl='cuda' needs CUDA tensors")
-        return _coded_reduce_kernel(g, w, out_dtype)
-    raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    return _coded_reduce_kernel(g, w, out_dtype)
+
+
+def coded_encode_int8(
+    g: torch.Tensor, w: torch.Tensor, err: torch.Tensor, impl: str | None = None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused wire-format encode: ``(q int8, scale, new_err)`` in one call."""
+    if _resolve(impl, g) == "torch":
+        return wire.coded_encode_int8_torch(g, w, err)
+    return wire.coded_encode_int8(g, w, err)
+
+
+def coded_decode_int8(q: torch.Tensor, ws: torch.Tensor, impl: str | None = None) -> torch.Tensor:
+    """Decode straight off stacked int8 wire payloads under a_w·scale_w."""
+    if _resolve(impl, q) == "torch":
+        return wire.coded_decode_int8_torch(q, ws)
+    return wire.coded_decode_int8(q, ws)

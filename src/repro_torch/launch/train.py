@@ -4,11 +4,13 @@ Example (one H100, full width):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --backend spmd --scheme heter_aware --s 1 --m 4 --straggler fault --steps 4
 
+and the same on the int8 compressed wire, through the fused encode kernel:
+  ... --steps 4 --compress --wire-kernel on
+
 The flags and defaults are the JAX launcher's, plus ``--device``.  The
 ``spmd`` backend runs the m coded workers in turn in this one process on
 one device.  Not accepted yet (their modules are not ported):
-``--ckpt-dir/--resume``, ``--trace-out/--log-jsonl``, ``--faults`` and
-``--compress/--wire-kernel``.
+``--ckpt-dir/--resume``, ``--trace-out/--log-jsonl`` and ``--faults``.
 """
 
 from __future__ import annotations
@@ -72,13 +74,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--speeds", default=None, help="comma-sep true worker speeds")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--compress", action="store_true",
+                    help="int8 wire compression with error feedback on the "
+                         "coded gradient (the spmd backend; the fused and "
+                         "reference backends send no wire and ignore it)")
+    ap.add_argument("--wire-kernel", default="auto", choices=["auto", "on", "off"],
+                    help="fused CUDA int8 wire encode for --compress: "
+                         "auto = on only where the fused encode measured "
+                         "faster than the unfused composition on this card")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and kernels run (cpu: plain PyTorch "
                          "versions of the kernels, for tests)")
     return ap
 
 
-def main(argv=None) -> dict:
+def main(argv=None, on_step=None) -> dict:
+    """Run the CLI with ``argv``.  ``on_step(trainer, step, state, metrics)``,
+    for callers that drive the launcher in process, runs after each step,
+    outside the step's timing."""
     args = build_parser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
@@ -96,7 +109,10 @@ def main(argv=None) -> dict:
         if args.speeds
         else np.linspace(1.0, 2.0, args.m)
     )
-    coding = CodingConfig(scheme=args.scheme, s=args.s)
+    coding = CodingConfig(
+        scheme=args.scheme, s=args.s, compress=args.compress,
+        wire_kernel={"auto": None, "on": True, "off": False}[args.wire_kernel],
+    )
     tc = TrainConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                      total_steps=args.steps, seed=args.seed)
     policy = None
@@ -120,10 +136,9 @@ def main(argv=None) -> dict:
     step_s: list[float] = []  # host seconds per step (each step ends in a device sync)
     last = [time.perf_counter()]
 
-    def on_step(step, st, metrics):
+    def log_step(step, st, metrics):
         now = time.perf_counter()
         step_s.append(now - last[0])
-        last[0] = now
         history.append(metrics)
         totals["sim"] += (
             metrics["sim_iter_time"] if np.isfinite(metrics["sim_iter_time"]) else 0.0
@@ -136,8 +151,11 @@ def main(argv=None) -> dict:
                 f"exact_frac {metrics['exact_fraction']:.2f}",
                 flush=True,
             )
+        if on_step is not None:
+            on_step(trainer, step, st, metrics)
+        last[0] = time.perf_counter()
 
-    state, metrics = trainer.run(state, data, args.steps, on_step=on_step)
+    state, metrics = trainer.run(state, data, args.steps, on_step=log_step)
     summary = {
         "final_loss": metrics.get("loss"), "wall_s": time.time() - t0,
         "sim_time_total_s": totals["sim"], "scheme": args.scheme, "m": args.m,
@@ -145,6 +163,7 @@ def main(argv=None) -> dict:
         "exact_fraction": metrics.get("exact_fraction"),
         "steps_run": max(args.steps, 0),
         "device": str(device), "backend": args.backend,
+        "compress": args.compress, "wire_kernel": trainer.engine.wire_kernel,
     }
     print(json.dumps(summary))
     return {"summary": summary, "history": history, "step_s": step_s,

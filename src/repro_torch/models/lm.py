@@ -73,8 +73,9 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def params_from_numpy(tree, device: torch.device | str = "cpu") -> Params:
-    """JAX parameter pytree (leaves as numpy arrays) -> the port's params."""
+def params_from_numpy(tree, device: torch.device | str = "cuda") -> Params:
+    """JAX parameter pytree (leaves as numpy arrays) -> the port's params on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return {k: _to_torch(v).to(device) for k, v in flatten_tree(tree).items()}
 
 
@@ -110,7 +111,7 @@ class LM:
 
     # -- init ----------------------------------------------------------------
 
-    def init(self, gen: torch.Generator, device: torch.device | str = "cpu") -> Params:
+    def init(self, gen: torch.Generator, device: torch.device | str = "cuda") -> Params:
         """Random weights from ``gen`` (a generator on ``device``), with the
         JAX package's distributions and layout."""
         cfg, dt, dev = self.cfg, self.dtype, torch.device(device)

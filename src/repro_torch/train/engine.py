@@ -10,7 +10,10 @@ gradient backends (the port of ``src/repro/train/engine.py``).
   - ``spmd``      — the wire protocol: per-worker flat encode and the
                     master decode through the ``coded_reduce`` CUDA kernel,
                     the m workers run in turn in this one process
-                    (:func:`~repro_torch.core.aggregator.faithful_spmd_step`).
+                    (:func:`~repro_torch.core.aggregator.faithful_spmd_step`);
+                    with ``compress`` the wire is int8 with per-worker error
+                    feedback, through the fused ``coded_encode_int8`` kernel
+                    and the int8 decode when ``wire_kernel`` is on.
 
 All backends take the same inputs — a partition-major batch and a decode
 vector or :class:`~repro_torch.core.decoding.DecodeOutcome` — and give the
@@ -22,9 +25,9 @@ cached on the device; every path that changes plan values (rebalance,
 membership change, checkpoint restore) builds a new plan object, so the
 next step re-uploads.
 
-Not ported yet: the multi-process spmd path and its elastic rebuild,
-``--compress`` (the int8 wire and its kernels), and the host-side pack
-baseline (``host_pack``).
+Not ported yet: the multi-process spmd path and its mesh rebuild, the
+wire state's checkpoint (``state_dict``), and the host-side pack baseline
+(``host_pack``).
 """
 
 from __future__ import annotations
@@ -42,11 +45,13 @@ from repro_torch.core.aggregator import (
     pack_coded_batch,
     pack_flat_device,
     protocol_reference,
+    remap_err_rows,
     slot_weights_device,
     support_slot_mask_device,
 )
 from repro_torch.core.codec import Codec
 from repro_torch.core.decoding import DecodeOutcome
+from repro_torch.kernels.autotune import wire_kernel_default
 from repro_torch.optim.adam import AdamWState, adamw_init, adamw_update, global_norm
 from repro_torch.optim.schedules import cosine_warmup
 
@@ -69,7 +74,9 @@ class StepEngine:
 
     ``model`` exposes ``init(generator, device) -> params`` and
     ``weighted_loss(params, batch) -> scalar`` where ``batch["weight"]``
-    holds per-sequence loss weights.  Parameters are updated in place.
+    holds per-sequence loss weights.  Parameters are updated in place,
+    and so is the spmd backend's compressed-wire error-feedback buffer
+    (``_err``), where the JAX engine threads a new array through each step.
     """
 
     def __init__(
@@ -80,6 +87,8 @@ class StepEngine:
         *,
         backend: str = "fused",
         device: torch.device | str = "cuda",
+        compress: bool = False,
+        wire_kernel: bool | None = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
@@ -88,6 +97,12 @@ class StepEngine:
         self.codec = codec
         self.backend = backend
         self.device = torch.device(device)
+        self.compress = compress
+        # fused int8 wire kernel: None defers to the probe, on only where
+        # the fused encode measured faster on this card (never on a CPU)
+        if wire_kernel is None:
+            wire_kernel = compress and wire_kernel_default(self.device)
+        self.wire_kernel = bool(wire_kernel) and compress
         # device-resident plan cache, keyed by plan object IDENTITY
         self._plan_ref = None
         self._dev_pids: torch.Tensor | None = None  # (m, n_slots) int64
@@ -96,6 +111,13 @@ class StepEngine:
         self._dev_coeff_mask: torch.Tensor | None = None  # slot_coeff*slot_mask
         self._ones_support: torch.Tensor | None = None  # (m, k) f32
         self._view: FlatView | None = None  # ravel layout, built on first spmd step
+        # spmd wire state: the per-worker flat error feedback, (m, D) f32 when
+        # compressed else (m, 1), keyed to the codec.version it belongs to,
+        # and the composed row map of membership transitions since it was
+        # last synced
+        self._err: torch.Tensor | None = None
+        self._err_version: int | None = None
+        self._row_map: list[int | None] | None = None
 
     # -- state -------------------------------------------------------------
 
@@ -192,8 +214,12 @@ class StepEngine:
         return loss.detach(), dict(zip(params, grads))
 
     def reset_error_feedback(self) -> None:
-        """No-op: the uncompressed wire carries no per-worker state (kept
-        so the trainer's non-finite guard reads as in the JAX package)."""
+        """Zero the spmd backend's per-worker error-feedback residuals, in
+        place.  Called after a non-finite decode (a corrupt payload pollutes
+        the residual of every worker in that step) and harmless otherwise;
+        membership changes reset through the codec-version key instead."""
+        if self._err is not None:
+            self._err.zero_()
 
     # -- elastic hooks --------------------------------------------------------
 
@@ -202,9 +228,34 @@ class StepEngine:
         backend runs any m on one device, so nothing is vetoed."""
 
     def note_membership(self, old_of_new: Sequence[int | None]) -> None:
-        """Record a membership transition.  A no-op: the uncompressed wire
-        carries no per-worker state, and the plan cache follows the codec's
-        new plan object."""
+        """Record an applied membership transition's row identity map (the
+        controller's ``on_transition`` hook).  Transitions between two steps
+        compose into one map; the next spmd step consumes it to carry the
+        retained workers' error-feedback rows.  The plan cache follows the
+        codec's new plan object by itself."""
+        if self.backend != "spmd":
+            return
+        oon = [None if o is None else int(o) for o in old_of_new]
+        prev = self._row_map
+        self._row_map = oon if prev is None else [None if o is None else prev[o] for o in oon]
+
+    def _sync_err(self, width: int) -> None:
+        """Bring the error-feedback buffer to the codec's current version:
+        carry the retained workers' rows through the composed row map (joiners
+        and departed rows zeroed); keep the whole buffer on a pure rebalance
+        (no map, unchanged shape: every worker kept its identity, and the
+        residual of gradients already applied does not depend on the
+        coefficients); otherwise start from zeros."""
+        m = self.codec.m
+        if self._err is not None and self._row_map is not None and len(self._row_map) == m:
+            self._err = remap_err_rows(self._err, self._row_map)
+        elif not (
+            self._err is not None and self._row_map is None
+            and tuple(self._err.shape) == (m, width)
+        ):
+            self._err = torch.zeros((m, width), dtype=torch.float32, device=self.device)
+        self._row_map = None
+        self._err_version = self.codec.version
 
     # -- gradients (backend seam, used directly by the equivalence tests) ---
 
@@ -221,9 +272,15 @@ class StepEngine:
             )
         if self._view is None:
             self._view = FlatView(params)
+        if self._err is None or self._err_version != self.codec.version:
+            # first call, or a membership change / rebalance re-encoded the plan
+            self._sync_err(self._view.size if self.compress else 1)
         a_dev = torch.as_tensor(np.asarray(a) / plan.k, dtype=torch.float32, device=self.device)
         sb = pack_coded_batch(pbatch, pids)
-        flat = faithful_spmd_step(self._slot_loss, params, sb, coeff, a_dev, self._view)
+        flat, self._err = faithful_spmd_step(
+            self._slot_loss, params, sb, coeff, a_dev, self._err, self._view,
+            compress=self.compress, wire_kernel=self.wire_kernel,
+        )
         return self._view.unravel(flat)
 
     def gradients(self, params: Params, partition_batch: dict, a) -> Params:

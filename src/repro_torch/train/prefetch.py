@@ -54,7 +54,7 @@ class DevicePrefetcher:
     """Iterate ``(step, device_batch)`` over ``[start, stop)`` with one batch
     of lookahead built on a worker thread (at most two batches alive)."""
 
-    def __init__(self, data: BatchSource, start: int, stop: int, device="cpu"):
+    def __init__(self, data: BatchSource, start: int, stop: int, device="cuda"):
         self.data = data
         self.start = start
         self.stop = stop

@@ -69,10 +69,6 @@ class CodedTrainer:
         churn: ChurnSchedule | None = None,
         device: torch.device | str = "cuda",
     ):
-        if coding.compress:
-            raise NotImplementedError(
-                "compress=True (the int8 wire) is not ported yet (ROADMAP Queue 1)"
-            )
         self.model = model
         self.coding = coding
         self.m = m
@@ -83,7 +79,10 @@ class CodedTrainer:
         self._exact_steps = 0
 
         self.codec = Codec.from_config(coding, m=m, c_init=c_init, rng=rng + 1)
-        self.engine = StepEngine(model, train, self.codec, backend=backend, device=device)
+        self.engine = StepEngine(
+            model, train, self.codec, backend=backend, device=device,
+            compress=coding.compress, wire_kernel=coding.wire_kernel,
+        )
         self.elastic = ElasticController(
             self.codec, true_speeds=true_speeds, comm_time=comm_time, c_init=c_init,
             policy=deadline_policy, churn=churn,

@@ -174,7 +174,7 @@ def test_lm_spmd_matches_jax_fused():
     jo, to = _outcomes(jc, tc, "straggler")
     jg = JStepEngine(jm, JTrainConfig(), jc, backend="fused").gradients(jp, batch, jo)
     tm = build_model(get_config("smollm-360m").reduced())
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     tg = StepEngine(tm, TrainConfig(), tc, backend="spmd", device="cpu").gradients(tp, batch, to)
     jflat = flatten_tree(jax.tree.map(np.asarray, jg))
     for key in tg:

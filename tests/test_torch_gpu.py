@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions and the
+wire format's bit oracle, on the card.
 
 Marked ``gpu``: they skip with a reason where no CUDA card is present.  On
 the H100 run them with ``python -m pytest -m gpu tests/test_torch_gpu.py``
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ref, wire
 from repro_torch.kernels.coded_reduce import coded_reduce, coded_reduce_torch
 
 
@@ -54,6 +56,100 @@ def test_cuda_nan_weight_poisons(cuda_device):
     g = torch.ones(3, 4096, device=cuda_device)
     w = torch.tensor([0.0, float("nan"), 1.0], device=cuda_device)
     assert torch.isnan(coded_reduce(g, w)).all()
+
+
+def _reduce_f32(g, w):
+    """The kernel's own reduce (coded_reduce.cu, f32 out): the oracle's
+    accumulation order then matches the encode kernel's bit for bit."""
+    return coded_reduce(g, w, torch.float32)
+
+
+def _wire_inputs(P, D, dtype, seed, dev, err_scale=1e-3):
+    r = np.random.default_rng(seed)
+    g = torch.from_numpy(r.normal(size=(P, D)).astype(np.float32)).to(dtype).to(dev)
+    w = torch.from_numpy(r.normal(size=(P,)).astype(np.float32)).to(dev)
+    err = torch.from_numpy(r.normal(scale=err_scale, size=(D,)).astype(np.float32)).to(dev)
+    return g, w, err
+
+
+def _assert_encode_bit_equal(g, w, err, out_err=None):
+    before = wire.coded_encode_int8.launches
+    oq, oscale, onew = ref.encode_int8_oracle_np(g, w, err, reduce_fn=_reduce_f32)
+    q, scale, new_err = wire.coded_encode_int8(g, w, err, out_err=out_err)
+    torch.cuda.synchronize()
+    assert wire.coded_encode_int8.launches == before + 1
+    np.testing.assert_array_equal(q.cpu().numpy(), oq)
+    assert scale.cpu().numpy().tobytes() == np.float32(oscale).tobytes()
+    got = new_err.cpu().numpy()
+    assert got.tobytes() == onew.tobytes(), np.flatnonzero(got.view(np.int32) != onew.view(np.int32))[:8]
+    return q, scale, new_err
+
+
+# the sweep of tests/test_wire_kernels.py: ragged and tile-crossing D,
+# P across 128, and its edge shapes
+_WIRE_SHAPES = [(1, 1), (1, 7), (2, 129), (5, 4095), (7, 511), (8, 512), (8, 513),
+                (20, 4097), (128, 128), (130, 1025), (33, 4200), (5, 1 << 20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,D", _WIRE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_encode_bit_equal_to_oracle(cuda_device, P, D, dtype):
+    _assert_encode_bit_equal(*_wire_inputs(P, D, dtype, P * 1000 + D, cuda_device))
+
+
+@pytest.mark.gpu
+def test_cuda_encode_zero_chain_and_in_place(cuda_device):
+    """The EPS floor; a 6-step error-feedback chain bit-equal at every step;
+    out_err=err in place gives the out-of-place bits."""
+    z = torch.zeros(4, 100, device=cuda_device)
+    q, _, _ = _assert_encode_bit_equal(z, torch.zeros(4, device=cuda_device),
+                                       torch.zeros(100, device=cuda_device))
+    assert not q.any()
+    r = np.random.default_rng(3)
+    w = torch.from_numpy(r.normal(size=(6,)).astype(np.float32)).to(cuda_device)
+    err = torch.zeros(777, device=cuda_device)
+    for _ in range(6):
+        g = torch.from_numpy(r.normal(size=(6, 777)).astype(np.float32)).to(cuda_device)
+        _, _, err = _assert_encode_bit_equal(g, w, err)
+    g, w, err = _wire_inputs(5, 1 << 16, torch.float32, 4, cuda_device)
+    q0, s0, e0 = wire.coded_encode_int8(g, w, err)
+    q1, s1, e1 = wire.coded_encode_int8(g, w, err, out_err=err)
+    torch.cuda.synchronize()
+    assert e1 is err and torch.equal(q0, q1) and torch.equal(s0, s1)
+    assert e0.cpu().numpy().tobytes() == err.cpu().numpy().tobytes()
+
+
+@pytest.mark.gpu
+def test_cuda_encode_nan_gives_nan_scale(cuda_device):
+    g, w, err = _wire_inputs(3, 4096, torch.float32, 2, cuda_device)
+    g[1, 1234] = float("nan")
+    q, scale, new_err = wire.coded_encode_int8(g, w, err)
+    assert torch.isnan(scale) and torch.isnan(new_err).all()
+    out = wire.coded_decode_int8(q[None], scale[None] * 0.0)
+    assert torch.isnan(out).all()
+
+
+@pytest.mark.gpu
+def test_cuda_encode_constants_have_the_format_bits(cuda_device):
+    eps, inv = wire.kernel_constants()
+    assert inv.tobytes() == np.float32(1.0 / 127.0).tobytes()
+    assert eps.tobytes() == np.float32(1e-12).tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,D", [(1, 1), (4, 4095), (4, 1 << 20), (10, 1500)])
+def test_cuda_decode_matches_plain(cuda_device, m, D):
+    r = np.random.default_rng(m + D)
+    q = torch.from_numpy(r.integers(-127, 128, size=(m, D)).astype(np.int8)).to(cuda_device)
+    ws = torch.from_numpy((r.normal(size=(m,)) * 1e-2).astype(np.float32)).to(cuda_device)
+    before = wire.coded_decode_int8.launches
+    out = wire.coded_decode_int8(q, ws)
+    torch.cuda.synchronize()
+    assert wire.coded_decode_int8.launches == before + 1
+    expect = wire.coded_decode_int8_torch(q, ws)
+    scale = max(1.0, float(expect.abs().max()))
+    np.testing.assert_allclose(out.cpu().numpy(), expect.cpu().numpy(), rtol=0, atol=1e-5 * scale)
 
 
 class _Source:

@@ -44,7 +44,7 @@ def _setup(arch, seed=0):
     """(JAX model, JAX params, port model, converted port params)."""
     jm, jp, _ = _jax_side(arch, seed)
     tm = build_model(get_config(arch).reduced())
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
 
@@ -70,7 +70,7 @@ def test_port_init_has_the_jax_layout():
     frameworks' random streams differ)."""
     for arch in ARCHS:
         _, jp, tm, tp = _setup(arch)
-        own = tm.init(torch.Generator().manual_seed(0))
+        own = tm.init(torch.Generator().manual_seed(0), "cpu")
         assert list(own) == list(tp)
         for k in own:
             assert own[k].shape == tp[k].shape and own[k].dtype == tp[k].dtype
@@ -107,9 +107,9 @@ def test_one_adamw_step_matches(bf16):
     jg = _jax_side("smollm-360m", 0)[2](jp, {k: jnp.asarray(v) for k, v in b.items()})[1]
     if bf16:
         jp, jg = (jax.tree.map(lambda x: x.astype(jnp.bfloat16), t) for t in (jp, jg))
-        tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     jflat_g = flatten_tree(jax.tree.map(np.asarray, jg))
-    tg = params_from_numpy(jax.tree.map(np.asarray, jg))  # the same grads on both sides
+    tg = params_from_numpy(jax.tree.map(np.asarray, jg), device="cpu")  # the same grads on both sides
     kw = dict(lr=3e-3, beta1=0.9, beta2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
     jopt = jadamw_init(jp)
     topt = adamw_init(tp)

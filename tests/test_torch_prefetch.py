@@ -43,7 +43,7 @@ def _prefetch_threads():
 
 
 def test_prefetch_hands_out_every_batch_in_order():
-    got = list(DevicePrefetcher(_Source(3), 2, 7))
+    got = list(DevicePrefetcher(_Source(3), 2, 7, device="cpu"))
     assert [step for step, _ in got] == [2, 3, 4, 5, 6]
     for step, batch in got:
         for key, x in _batch(3, step).items():
@@ -55,7 +55,7 @@ def test_prefetch_hands_out_every_batch_in_order():
 def test_prefetch_reraises_original_exception_with_traceback():
     seen = []
     with pytest.raises(ValueError, match="boom") as ei:
-        for step, _ in DevicePrefetcher(_Source(2, fail_at=2), 0, 10):
+        for step, _ in DevicePrefetcher(_Source(2, fail_at=2), 0, 10, device="cpu"):
             seen.append(step)
     assert seen == [0, 1]  # the good prefix is delivered first
     assert "batch" in "".join(traceback.format_tb(ei.value.__traceback__))
@@ -63,7 +63,7 @@ def test_prefetch_reraises_original_exception_with_traceback():
 
 
 def test_prefetch_consumer_break_joins_the_worker():
-    it = iter(DevicePrefetcher(_Source(2), 0, 10 ** 6))
+    it = iter(DevicePrefetcher(_Source(2), 0, 10 ** 6, device="cpu"))
     step, _ = next(it)
     assert step == 0
     it.close()  # closing the generator stops and joins the worker
@@ -71,7 +71,7 @@ def test_prefetch_consumer_break_joins_the_worker():
 
 
 def test_prefetch_empty_range():
-    assert list(DevicePrefetcher(_Source(2), 5, 5)) == []
+    assert list(DevicePrefetcher(_Source(2), 5, 5, device="cpu")) == []
 
 
 class _Toy:

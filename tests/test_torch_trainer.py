@@ -5,8 +5,11 @@ Reduced smollm-360m (f32), heter_aware, m=4, one faulted worker per step
 plane metrics of every step are equal and the loss agrees to rtol 1e-4.
 The port runs its main path, the ``spmd`` backend; the JAX trainer runs
 its default ``fused`` backend (its spmd backend needs m devices).  Also:
-the port's launcher runs to its JSON summary on the CPU, and neither its
-modules, ``chip_smoke.py`` nor its main path load ``jax`` or ``repro``.
+the port's launcher runs to its JSON summary on the CPU, uncompressed and on
+the int8 wire (``--compress --wire-kernel on``); a non-finite compressed
+decode zeroes the error feedback; and neither the port's modules,
+``chip_smoke.py`` nor its main path, compressed or not, load ``jax`` or
+``repro``.
 """
 
 import json
@@ -57,7 +60,7 @@ def test_trainer_metrics_match_jax_trainer():
                        CodingConfig(scheme="heter_aware", s=1), TrainConfig(**tc_kw),
                        straggler_model=FixedDelayStragglers(s=1, delay=np.inf),
                        backend="spmd", device="cpu", **_trainer_kwargs())
-    params = params_from_numpy(jax.tree.map(np.asarray, jstate.params))
+    params = params_from_numpy(jax.tree.map(np.asarray, jstate.params), device="cpu")
     tstate = TrainerState(params=params, opt=adamw_init(params), step=0)
     jdata = JData(jcfg, k=jtr.k, part_mb=2, seq_len=SEQ, seed=0)
     tdata = SyntheticData(ttr.model.cfg, k=ttr.k, part_mb=2, seq_len=SEQ, seed=0)
@@ -141,6 +144,52 @@ def test_launcher_runs_on_cpu(capsys):
     assert all(h["n_used"] >= 2 and h["exact"] == 1.0 for h in out["history"])
 
 
+def test_launcher_runs_compressed_wire_on_cpu(capsys):
+    from repro_torch.launch.train import main
+
+    seen = []
+
+    def on_step(trainer, step, state, metrics):
+        err = trainer.engine._err
+        seen.append((step, bool(torch.isfinite(err).all()), float(err.abs().max())))
+
+    out = main(["--arch", "smollm-360m", "--reduced", "--backend", "spmd", "--m", "4",
+                "--straggler", "fault", "--steps", "4", "--seq-len", "16", "--device", "cpu",
+                "--compress", "--wire-kernel", "on"], on_step=on_step)
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["compress"] is True and summary["wire_kernel"] is True
+    assert summary["steps_run"] == 4 and len(out["history"]) == 4
+    assert all(np.isfinite(h["loss"]) and h["exact"] == 1.0 for h in out["history"])
+    assert [s[0] for s in seen] == [0, 1, 2, 3]
+    assert all(finite and mx > 0 for _, finite, mx in seen)
+    n = out["trainer"].engine._view.size
+    assert tuple(out["trainer"].engine._err.shape) == (M, n)
+
+
+def test_nonfinite_compressed_decode_zeroes_error_feedback():
+    """A NaN in the coded gradient reaches the decode as a NaN scale; the
+    trainer's guard skips the step and zeroes every worker's residual."""
+    tr = CodedTrainer(_TToy(), CodingConfig(scheme="heter_aware", s=1, compress=True,
+                                            wire_kernel=True),
+                      TrainConfig(lr=1e-2, warmup_steps=1, total_steps=4),
+                      straggler_model=FixedDelayStragglers(s=1, delay=np.inf),
+                      backend="spmd", device="cpu", **_trainer_kwargs())
+    r = np.random.default_rng(0)
+    p = {"w1": torch.from_numpy(r.normal(size=(4, 8)).astype(np.float32)),
+         "w2": torch.from_numpy(r.normal(size=(8, 1)).astype(np.float32))}
+    state = TrainerState(params=p, opt=adamw_init(p), step=0)
+    state, m0 = tr.step(state, _toy_batch(tr.k, 0))
+    assert m0["skipped_nonfinite"] == 0.0 and float(tr.engine._err.abs().max()) > 0
+    before = {k: v.clone() for k, v in state.params.items()}
+    bad = _toy_batch(tr.k, 1)
+    bad["x"][0, 0, 0] = np.nan
+    state, m1 = tr.step(state, bad)
+    assert m1["skipped_nonfinite"] == 1.0 and not np.isfinite(m1["loss"])
+    assert state.step == 1 and not tr.engine._err.any()
+    for k in before:
+        assert torch.equal(state.params[k], before[k])
+
+
 def test_launcher_without_a_card_exits_with_an_error(monkeypatch):
     from repro_torch.launch import train
 
@@ -156,8 +205,11 @@ def test_main_path_never_loads_jax_or_repro():
         "for mod in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
         "from repro_torch.launch.train import main\n"
-        "main(['--arch', 'smollm-360m', '--reduced', '--backend', 'spmd', '--m', '4',\n"
-        "      '--straggler', 'fault', '--steps', '1', '--seq-len', '8', '--device', 'cpu'])\n"
+        "args = ['--arch', 'smollm-360m', '--reduced', '--backend', 'spmd', '--m', '4',\n"
+        "        '--straggler', 'fault', '--steps', '1', '--seq-len', '8', '--device', 'cpu']\n"
+        "main(args)\n"
+        "main(args + ['--compress', '--wire-kernel', 'on'])\n"
+        "main(args + ['--compress', '--wire-kernel', 'auto'])\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
