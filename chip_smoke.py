@@ -14,7 +14,9 @@ never imports ``jax`` or the JAX package):
      ragged shapes and every dtype it takes, with the tolerance stated; the
      fused int8 encode BIT-equal to the wire format's numpy oracle (whose
      reduce is the CUDA ``coded_reduce``) over the sweep, edge shapes, the
-     EPS floor, an error-feedback chain, NaN and in-place cases;
+     EPS floor, an error-feedback chain, NaN and in-place cases; the SSD
+     scan's y and h over the JAX test's shapes (G > 1, f32 and bf16 B/C)
+     and the full mamba2 layer with the model's dA (finite);
   4. each kernel's time at the main path's shapes (CUDA events, median)
      beside its bound, the plain version's time, the unfused composition's
      time for the wire kernels, and one PyTorch library call computing the
@@ -25,14 +27,20 @@ never imports ``jax`` or the JAX package):
      ``coded_reduce`` ran m+1 times per step; then the same on the int8
      wire (``--compress --wire-kernel on``): the encode kernel m times a
      step, the decode once, the error feedback finite and non-zero after
-     every step; after phase 6 both paths run again in reverse order, so
-     their step times are compared A B B A;
+     every step; then mamba2-370m at full width
+     and seq 512 (two SSD chunks), the same flags: ``coded_reduce`` m+1
+     times a step and ``ssd_scan`` 48 times a forward pass, (m*n_slots + 1)
+     passes a step;
   6. a cross-check at full width in f32 with TF32 off: one decoded gradient
      from the spmd backend (through the kernels) against the fused backend
      (autograd), relative L2 error <= 1e-4; and the compressed spmd
      gradient with the wire kernel on against it off (rtol 1e-4, atol
      2e-5), each within 0.05 of max|.| of the uncompressed one (the whole
-     vector: one scale covers it; each leaf's number is printed);
+     vector: one scale covers it; each leaf's number is printed); for
+     mamba2 the spmd gradient against the fused one at seq 512 (relative
+     L2 <= 1e-4), and the loss and gradients through the SSD kernel
+     against the plain version (1e-4 relative; relative L2 1e-3 over all
+     leaves and over each mamba leaf alone);
   7. a JSON line of the kernels, then the card as the last line.
 
 Each main path is driven with every kernel's launch count set to 0 just
@@ -59,14 +67,26 @@ SLICE_ARGS = ["--arch", ARCH, "--backend", "spmd", "--scheme", "heter_aware",
               "--s", str(S), "--m", str(M), "--straggler", "fault", "--steps", str(STEPS)]
 WIRE_ARGS = [*SLICE_ARGS, "--compress", "--wire-kernel", "on"]
 D_FULL = 361_821_120  # smollm-360m parameters: the flat wire's length
+# mamba2-370m at seq 512: two SSD chunks of 256, so the carried state runs
+MAMBA, MAMBA_SEQ, MAMBA_LAYERS = "mamba2-370m", 512, 48
+MAMBA_ARGS = [*SLICE_ARGS[:1], MAMBA, *SLICE_ARGS[2:], "--seq-len", str(MAMBA_SEQ)]
+D_MAMBA = 368_338_432  # mamba2-370m parameters (bf16, A_log / D / dt_bias f32)
+# the full mamba2 layer's SSD scan: B = part_mb, S, H, P, G, N, chunk
+SSD_FULL = dict(B=2, S=MAMBA_SEQ, H=32, P=64, G=1, N=128, chunk=256)
+SSD_TILE = 64  # the kernel's own tile along S (csrc/ssd_scan.cu kT)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 F32_FLOPS = 67e12  # H100 SXM published f32 rate outside the tensor cores
 NO_LIBRARY = ("no single PyTorch call computes it: torch.mv takes no int8 input, "
               "and PyTorch has no fused reduce + int8 quantize")
+NO_SSD_LIBRARY = "no single PyTorch call computes an SSD scan"
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the report, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -366,26 +386,26 @@ def time_decode(torch, m: int, D: int) -> dict:
 
 def launch_counters() -> dict:
     from repro_torch.kernels.coded_reduce import coded_reduce
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
 
     return {"coded_reduce": coded_reduce, "coded_encode_int8": coded_encode_int8,
-            "coded_decode_int8": coded_decode_int8}
+            "coded_decode_int8": coded_decode_int8, "ssd_scan": ssd_scan}
 
 
 def main_path(torch, label: str, args: list[str], expected, on_step=None,
-              expect=None) -> dict:
+              n_params_want: int = D_FULL) -> dict:
     """Phase 5: one slice command in process, every kernel's count set to 0
-    just before it and read just after.  ``expected(steps_taken)`` maps each
-    kernel to the launches the path must make.  ``expect`` is an earlier
-    control-plane replay to reuse (a repeat run then skips the profile)."""
+    just before it and read just after, then one profiled step.
+    ``expected(steps_taken)`` maps each kernel to the launches the path must
+    make."""
+    arch = args[args.index("--arch") + 1]
     from repro_torch.launch.train import main as train_main
 
-    repeat = expect is not None
-    if not repeat:
-        # the control plane is independent of the model: the same run at the
-        # reduced width on the CPU must give the same per-step decode metrics
-        log(f"control-plane replay of the {label} path (reduced width, CPU):")
-        expect = train_main([*args, "--reduced", "--device", "cpu"])["history"]
+    # the control plane is independent of the model: the same run at the
+    # reduced width on the CPU must give the same per-step decode metrics
+    log(f"control-plane replay of the {label} path (reduced width, CPU):")
+    expect = train_main([*args, "--reduced", "--device", "cpu"])["history"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters = launch_counters()
@@ -400,8 +420,9 @@ def main_path(torch, label: str, args: list[str], expected, on_step=None,
     peak = torch.cuda.max_memory_allocated()
     hist = out["history"]
     n_params = sum(p.numel() for p in out["state"].params.values())
-    log(f"main path ({label}): {ARCH} full width, {n_params} parameters "
-        f"({next(iter(out['state'].params.values())).dtype}), {len(hist)} steps in "
+    dtypes = sorted({str(p.dtype) for p in out["state"].params.values()})
+    log(f"main path ({label}): {arch} full width, {n_params} parameters "
+        f"({', '.join(dtypes)}), {len(hist)} steps in "
         f"{wall:.2f} s wall ({wall / max(len(hist), 1):.3f} s/step, launch and init included), "
         f"peak memory {peak / 2**30:.2f} GiB, launches {launches}")
     for i, h in enumerate(hist):
@@ -420,8 +441,8 @@ def main_path(torch, label: str, args: list[str], expected, on_step=None,
         if not (h["n_stragglers"] == S and 1 <= h["n_used"] <= M - S
                 and h["exact_fraction"] == 1.0 and h["skipped"] == 0.0):
             raise AssertionError(f"step {i}: unexpected decode metrics {h}")
-    if n_params != D_FULL:
-        raise AssertionError(f"{n_params} parameters, expected {D_FULL} for {ARCH}")
+    if n_params != n_params_want:
+        raise AssertionError(f"{n_params} parameters, expected {n_params_want} for {arch}")
     steps_taken = sum(1 for h in hist if h["skipped"] == 0.0)
     want = expected(steps_taken)
     if launches != want:
@@ -432,11 +453,12 @@ def main_path(torch, label: str, args: list[str], expected, on_step=None,
     steady = statistics.median(out["step_s"][1:])
     log(f"main path ({label}) step time: median of steps 1-{STEPS - 1} {steady:.4f} s "
         f"(step 0 {out['step_s'][0]:.4f} s includes the first batch and warm-up)")
-    breakdown = {} if repeat else profile_step(torch, out, label)
+    breakdown = profile_step(torch, out, label)
     del out
     torch.cuda.empty_cache()
-    return dict(launches=launches, peak_gib=peak / 2**30, wall_s=wall, losses=losses,
-                n_params=n_params, step_s=steady, breakdown=breakdown, expect=expect)
+    return dict(launches=launches, steps=steps_taken, peak_gib=peak / 2**30, wall_s=wall,
+                losses=losses,
+                n_params=n_params, step_s=steady, breakdown=breakdown)
 
 
 def check_err_after_step(torch):
@@ -473,7 +495,8 @@ def profile_step(torch, out, label: str) -> dict:
     groups: dict[str, float] = {}
     counts: dict[str, int] = {}
     kernels: list[tuple[float, int, str]] = []
-    for ev in prof.key_averages():
+    averages = prof.key_averages()  # one pass over the step's events
+    for ev in averages:
         # only the device's own events: a CPU op also carries the device
         # time of the kernels it launched, which would count them twice
         if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
@@ -485,6 +508,8 @@ def profile_step(torch, out, label: str) -> dict:
         name = ev.key.lower()
         if "coded_reduce" in name:
             grp = "coded_reduce"
+        elif "ssd_scan" in name:
+            grp = "ssd_scan"
         elif "encode_coded_max" in name or "encode_quantize" in name:
             grp = "coded_encode_int8"
         elif any(t in name for t in ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")):
@@ -507,7 +532,7 @@ def profile_step(torch, out, label: str) -> dict:
     for ms, count, key in sorted(kernels, reverse=True)[:8]:
         log(f"    {ms:8.2f} ms {count:7d}x {key[:100]}")
     host = sorted(((ev.self_cpu_time_total / 1e3, int(ev.count), ev.key)
-                   for ev in prof.key_averages() if ev.device_type == DeviceType.CPU),
+                   for ev in averages if ev.device_type == DeviceType.CPU),
                   reverse=True)
     log(f"  host: {sum(ms for ms, _, _ in host):.1f} ms of self CPU time in the step "
         "(profiler overhead included); the 8 largest ops:")
@@ -516,10 +541,19 @@ def profile_step(torch, out, label: str) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy, **{f"{g}_ms": v for g, v in groups.items()}}
 
 
-def cross_check(torch) -> dict:
+def rel_l2(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every leaf of ``b``, in f64."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum()) for k in b)
+    den = sum(float(b[k].double().square().sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def cross_check(torch, arch: str, seq_len: int, part_mb: int, wire: bool) -> dict:
     """Phase 6 at full width in f32, TF32 off, one faulted worker: spmd
-    (kernels) vs fused (autograd); then the compressed spmd gradient with
-    the wire kernel on vs off, each against the uncompressed fused one."""
+    (kernels) vs fused (autograd), relative L2 <= 1e-4; with ``wire``, the
+    compressed spmd gradient with the wire kernel on vs off, each against
+    the uncompressed fused one.  The fused backend takes all m * n_slots
+    coded micro-batches in one pass, so ``part_mb`` x ``seq_len`` must fit."""
     from repro_torch.configs import CodingConfig, TrainConfig, get_config
     from repro_torch.core.codec import Codec
     from repro_torch.data.pipeline import SyntheticData
@@ -532,30 +566,34 @@ def cross_check(torch) -> dict:
         f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 = "
         f"{torch.backends.cudnn.allow_tf32})")
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     model = build_model(cfg)
     codec = Codec.from_config(CodingConfig(scheme="heter_aware", s=S), m=M, rng=1)
     outcome = codec.decode_outcome([w for w in range(M) if w != 1])  # worker 1 faulted
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    batch = SyntheticData(cfg, k=codec.k, part_mb=2, seq_len=64, seed=0).batch(0)
+    batch = SyntheticData(cfg, k=codec.k, part_mb=part_mb, seq_len=seq_len, seed=0).batch(0)
+    runs = [("fused", dict(backend="fused")), ("spmd", dict(backend="spmd"))]
+    if wire:
+        runs += [("wire_on", dict(backend="spmd", compress=True, wire_kernel=True)),
+                 ("wire_off", dict(backend="spmd", compress=True, wire_kernel=False))]
     grads = {}
-    for name, kw in (("fused", dict(backend="fused")), ("spmd", dict(backend="spmd")),
-                     ("wire_on", dict(backend="spmd", compress=True, wire_kernel=True)),
-                     ("wire_off", dict(backend="spmd", compress=True, wire_kernel=False))):
+    for name, kw in runs:
         eng = StepEngine(model, TrainConfig(), codec, device=dev, **kw)
         grads[name] = eng.gradients(params, batch, outcome)
         torch.cuda.synchronize()
         del eng
         torch.cuda.empty_cache()
-    num = sum(float((grads["spmd"][k].double() - grads["fused"][k].double()).square().sum())
-              for k in params)
-    den = sum(float(grads["fused"][k].double().square().sum()) for k in params)
-    rel = (num / den) ** 0.5
+    rel = rel_l2(grads["spmd"], grads["fused"])
     ok = rel <= 1e-4
-    log(f"cross-check {ARCH} f32 full width, decode a={list(map(float, outcome.a))}: "
-        f"spmd vs fused relative L2 error {rel:.3e} (limit 1e-4) {'ok' if ok else 'FAIL'}")
+    log(f"cross-check {arch} f32 full width, micro-batches of {part_mb} x {seq_len} tokens, "
+        f"decode a={list(map(float, outcome.a))}: spmd vs fused relative L2 error {rel:.3e} "
+        f"(limit 1e-4) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"spmd vs fused relative L2 error {rel} > 1e-4")
+        raise AssertionError(f"{arch} spmd vs fused relative L2 error {rel} > 1e-4")
+    if not wire:
+        del grads, params
+        torch.cuda.empty_cache()
+        return dict(rel_l2=rel)
     # wire on vs off: the fused and unfused quantize differ by at most 1 ulp
     # of the scale (the bound of the JAX package's check_engine_spmd_wire)
     worst_excess, max_diff = -math.inf, 0.0
@@ -593,6 +631,179 @@ def cross_check(torch) -> dict:
                 wire_vs_fused_worst_leaf={n: max(v.values()) for n, v in leaf_rel.items()})
 
 
+def ssd_inputs(torch, B, S, H, P, G, N, bc_dtype, seed, model_dA=False):
+    """SSD scan inputs on the card: x (pre-multiplied by dt) and dA f32, B and
+    C in ``bc_dtype``.  ``model_dA`` draws dt as mamba2-370m's layer does at
+    init (softplus(N(0,1) + dt_bias), dt_bias the inverse softplus of
+    log-uniform [1e-3, 0.1]) and A = -(1..H), so cumsum(dA) over a 256-row
+    chunk falls to hundreds below zero; otherwise the draws of
+    tests/test_kernels.py (dt ~ U(0.01, 0.2), A ~ -U(0.3, 2))."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if model_dA:
+        u = torch.rand(H, generator=gen, device=dev)
+        dt0 = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+        dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+        raw = torch.randn(B, S, H, generator=gen, device=dev)
+        dt = torch.logaddexp(raw + dt_bias, torch.zeros((), device=dev))
+        A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+        act = torch.nn.functional.silu
+        x = act(torch.randn(B, S, H, P, generator=gen, device=dev))
+        Bm = act(torch.randn(B, S, G, N, generator=gen, device=dev))
+        Cm = act(torch.randn(B, S, G, N, generator=gen, device=dev))
+    else:
+        dt = torch.rand(B, S, H, generator=gen, device=dev) * 0.19 + 0.01
+        A = -(torch.rand(H, generator=gen, device=dev) * 1.7 + 0.3)
+        x = torch.randn(B, S, H, P, generator=gen, device=dev)
+        Bm = torch.randn(B, S, G, N, generator=gen, device=dev)
+        Cm = torch.randn(B, S, G, N, generator=gen, device=dev)
+    return ((x * dt[..., None]).contiguous(), (dt * A).contiguous(),
+            Bm.to(bc_dtype).contiguous(), Cm.to(bc_dtype).contiguous())
+
+
+def check_ssd_vs_plain(torch) -> dict:
+    """Phase 3, the SSD scan: y and h of the kernel against the plain
+    chunked version on the card.  The shapes of tests/test_kernels.py
+    (G > 1 among them; chunk S/4), f32 and bf16 B/C, within atol 1e-4 /
+    rtol 1e-3 as the JAX test; then the full mamba2 layer (chunk 256,
+    model-drawn dA) within 1e-3 x max|plain|, finite.  The decay is exp of a
+    difference of cumulative sums, which the two sum in different orders
+    (64-row tiles against 256-row chunks): where |cumsum| reaches hundreds,
+    the f32 spacing (6e-5 at 800) moves the decay by about 1e-4 relative."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    worst = 0.0
+    for S_, H, G, P, N in [(32, 2, 1, 8, 16), (64, 4, 2, 16, 32), (64, 4, 4, 8, 8),
+                           (96, 8, 2, 32, 16)]:
+        for bc_name, bc in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for seed in range(2):
+                x, dA, Bm, Cm = ssd_inputs(torch, 2, S_, H, P, G, N, bc, seed)
+                y, h = ssd.ssd_scan(x, dA, Bm, Cm, S_ // 4)
+                torch.cuda.synchronize()
+                py, ph = ssd.ssd_scan_torch(x, dA, Bm, Cm, S_ // 4)
+                errs = [float((y - py).abs().max()), float((h - ph).abs().max())]
+                ok = (torch.allclose(y, py, atol=1e-4, rtol=1e-3)
+                      and torch.allclose(h, ph, atol=1e-4, rtol=1e-3))
+                log(f"check ssd_scan S={S_} H={H} G={G} P={P} N={N} B/C {bc_name} seed {seed}: "
+                    f"max_abs_err y {errs[0]:.3e} h {errs[1]:.3e} (atol 1e-4, rtol 1e-3) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"ssd_scan S={S_} H={H} G={G} P={P} N={N} {bc_name} disagrees")
+                worst = max(worst, *errs)
+    f = SSD_FULL
+    full = {}
+    for bc_name, bc in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x, dA, Bm, Cm = ssd_inputs(torch, f["B"], f["S"], f["H"], f["P"], f["G"], f["N"], bc,
+                                   11, model_dA=True)
+        low = float(dA.reshape(f["B"], -1, f["chunk"], f["H"]).cumsum(2).min())
+        y, h = ssd.ssd_scan(x, dA, Bm, Cm, f["chunk"])
+        torch.cuda.synchronize()
+        py, ph = ssd.ssd_scan_torch(x, dA, Bm, Cm, f["chunk"])
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+        ey, eh = float((y - py).abs().max()), float((h - ph).abs().max())
+        ty, th = 1e-3 * float(py.abs().max()), 1e-3 * float(ph.abs().max())
+        ok = finite and ey <= ty and eh <= th and bool(torch.isfinite(py).all())
+        log(f"check ssd_scan full layer B={f['B']} S={f['S']} H={f['H']} P={f['P']} G={f['G']} "
+            f"N={f['N']} chunk {f['chunk']} B/C {bc_name}, min cumsum(dA) over a chunk {low:.1f}: "
+            f"finite {finite}, max_abs_err y {ey:.3e} (limit {ty:.3e}), h {eh:.3e} "
+            f"(limit {th:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ssd_scan at the full layer shape ({bc_name}) disagrees")
+        full[bc_name] = dict(max_abs_err=max(ey, eh), min_cumsum=low)
+        del x, dA, Bm, Cm, y, h, py, ph
+    torch.cuda.empty_cache()
+    return dict(worst_small=worst, full=full)
+
+
+def time_ssd(torch) -> dict:
+    """Phase 4, the SSD scan at the full mamba2 layer (bf16 B/C, as the main
+    path gives it): kernel, plain version; no library call computes it.
+    The bound counts the least work of any form of the scan: the state
+    update and the readout, one multiply-add each per (row, head, p, n),
+    4*B*S*H*P*N operations over the f32 rate (the chunked form's causal
+    triangle only adds to it), against each input read once and y, h
+    written once.  The kernel's own count, its 64-row tiles' lower
+    triangles included, is logged beside it."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    f = SSD_FULL
+    B, S_, H, P, G, N = f["B"], f["S"], f["H"], f["P"], f["G"], f["N"]
+    x, dA, Bm, Cm = ssd_inputs(torch, B, S_, H, P, G, N, torch.bfloat16, 12, model_dA=True)
+    y, h = ssd.ssd_scan(x, dA, Bm, Cm, f["chunk"])
+    py, ph = ssd.ssd_scan_torch(x, dA, Bm, Cm, f["chunk"])
+    err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
+    ms = time_cuda(lambda: ssd.ssd_scan(x, dA, Bm, Cm, f["chunk"]))
+    plain_ms = time_cuda(lambda: ssd.ssd_scan_torch(x, dA, Bm, Cm, f["chunk"]), reps=5, warmup=1)
+    nbytes = (x.numel() + dA.numel()) * 4 + (Bm.numel() + Cm.numel()) * 2 + (y.numel() + h.numel()) * 4
+    flops = 4 * B * S_ * H * P * N
+    # the kernel's work: C B^T per group and its product with X per head over
+    # each 64-row tile's lower triangle (T(T+1)/2 pairs), and the state terms
+    tri = SSD_TILE * (SSD_TILE + 1) // 2
+    flops_kernel = 2 * B * (S_ // SSD_TILE) * tri * (G * N + H * P) + flops
+    bound_ms, bound_by = bound(nbytes, flops)
+    res = dict(shape=f, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=err, flops=flops, flops_kernel=flops_kernel, nbytes=nbytes,
+               TFLOPs=flops / ms / 1e9)
+    log(f"time ssd_scan B={B} S={S_} H={H} P={P} G={G} N={N} bf16 B/C: kernel {ms:.4f} ms "
+        f"({res['TFLOPs']:.2f} TFLOP/s of the least {flops / 1e9:.3f} GFLOP; bound "
+        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it; the kernel's own "
+        f"{flops_kernel / 1e9:.3f} GFLOP at its 64-row tiles would take "
+        f"{bound(nbytes, flops_kernel)[0]:.4f} ms), {nbytes / 1e6:.2f} MB moved, plain "
+        f"{plain_ms:.4f} ms, library call none ({NO_SSD_LIBRARY}), max_abs_err {err:.3e}")
+    del x, dA, Bm, Cm, y, h, py, ph
+    torch.cuda.empty_cache()
+    return res
+
+
+def mamba_kernel_check(torch) -> dict:
+    """Phase 6 for mamba2-370m at full width in f32, TF32 off: one
+    micro-batch of the main path's shape (2 x 512, two chunks) through the
+    SSD kernel against ``ssd_impl="torch"``.  The weighted loss within 1e-4
+    relative, and the gradients within relative L2 1e-3, over all leaves and
+    over each mamba leaf on its own.  At random init the loss and the
+    all-leaf number hardly see the SSD output (the tied embedding's gradient
+    dominates); the mamba leaves' gradients are the ones that do."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.lm import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(MAMBA), dtype="float32")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    part = SyntheticData(cfg, k=1, part_mb=2, seq_len=MAMBA_SEQ, seed=3).partition(0, 0)
+    mb = {k: torch.as_tensor(v, device=dev) for k, v in part.items()}
+    mb["weight"] = torch.full((2,), 0.5, device=dev)
+    out = {}
+    for impl in (None, "torch"):
+        m_impl = build_model(cfg, ssd_impl=impl)
+        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+        before = launch_counters()["ssd_scan"].launches
+        loss = m_impl.weighted_loss(leaves, mb)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        launched = launch_counters()["ssd_scan"].launches - before
+        out[impl or "kernel"] = (float(loss.detach()), dict(zip(params, g)), launched)
+        del leaves, loss, g
+    (lk, gk, nk), (lt, gt, nt) = out["kernel"], out["torch"]
+    loss_rel = abs(lk - lt) / abs(lt)
+    grad_rel = rel_l2(gk, gt)
+    leaf_rel = {k: rel_l2({k: gk[k]}, {k: gt[k]}) for k in gt if ".mamba." in k}
+    ok = (loss_rel <= 1e-4 and grad_rel <= 1e-3 and max(leaf_rel.values()) <= 1e-3
+          and nk == MAMBA_LAYERS and nt == 0)
+    log(f"cross-check {MAMBA} f32 full width, one 2 x {MAMBA_SEQ} micro-batch: weighted loss "
+        f"through the kernel {lk:.6f} vs plain {lt:.6f}, relative diff {loss_rel:.3e} (limit "
+        f"1e-4); gradients relative L2 {grad_rel:.3e} over all leaves (limit 1e-3), each mamba "
+        "leaf (limit 1e-3): " + ", ".join(f"{k} {v:.3e}" for k, v in leaf_rel.items())
+        + f"; kernel launches {nk} / {nt} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mamba2 loss or gradients through the SSD kernel disagree with plain")
+    del out, params
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, mamba_leaf_rel_l2=leaf_rel)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc" / "coded_reduce.cu").is_file():
         print("chip_smoke: run from the root of a checkout (src/repro_torch missing)",
@@ -612,7 +823,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
-    log(card)
+    print(card, flush=True)  # as nvidia-smi gives it, on a line of its own
 
     # 2. the build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -630,6 +841,7 @@ def main() -> int:
     worst = check_kernel_vs_plain(torch, cr)
     n_bit = check_encode_vs_oracle(torch)
     dec_worst = check_decode_vs_plain(torch)
+    ssd_check = check_ssd_vs_plain(torch)
 
     # 4. timing at the main path's shapes
     from repro_torch.configs import CodingConfig
@@ -640,6 +852,7 @@ def main() -> int:
     dec = time_kernel(torch, cr, M, D_FULL, "decode (P = m)")
     wenc = time_encode(torch, n_slots, D_FULL)
     wdec = time_decode(torch, M, D_FULL)
+    tssd = time_ssd(torch)
     auto = autotune.wire_kernel_default("cuda")
     probe = next(iter(autotune.PROBE_US.values()))
     log(f"wire_kernel_default on this card: {auto} (probe at f32 (8, 65536): "
@@ -647,21 +860,26 @@ def main() -> int:
 
     # 5. the main paths, 6. the f32 cross-checks
     plain_launches = lambda n: {  # noqa: E731
-        "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0}
+        "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
+        "ssd_scan": 0}
     wire_launches = lambda n: {  # noqa: E731
-        "coded_reduce": n, "coded_encode_int8": n * M, "coded_decode_int8": n}
+        "coded_reduce": n, "coded_encode_int8": n * M, "coded_decode_int8": n, "ssd_scan": 0}
+    # a step's forward passes: one per worker slot (m * n_slots gradients)
+    # and one more for the step's loss at the decoded weights
+    passes = M * n_slots + 1
+    mamba_launches = lambda n: {  # noqa: E731
+        "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
+        "ssd_scan": n * passes * MAMBA_LAYERS}
     run = main_path(torch, "spmd", SLICE_ARGS, plain_launches)
     wire_run = main_path(torch, "spmd --compress", WIRE_ARGS, wire_launches,
                          on_step=check_err_after_step(torch))
-    xc = cross_check(torch)
-    # the host sets the step time and its speed drifts within a call, so the
-    # two paths run again in reverse order (A B B A) before they are compared
-    wire_again = main_path(torch, "spmd --compress, repeat", WIRE_ARGS, wire_launches,
-                           expect=wire_run["expect"])
-    run_again = main_path(torch, "spmd, repeat", SLICE_ARGS, plain_launches,
-                          expect=run["expect"])
-    log(f"step time, A B B A order: spmd {run['step_s']:.4f} / {run_again['step_s']:.4f} s, "
-        f"spmd --compress {wire_run['step_s']:.4f} / {wire_again['step_s']:.4f} s")
+    xc = cross_check(torch, ARCH, seq_len=64, part_mb=2, wire=True)
+    log(f"mamba2 main path: {passes} forward passes a step (m * n_slots = {M * n_slots} "
+        f"gradients + 1 loss), so ssd_scan {passes * MAMBA_LAYERS} launches a step")
+    mamba_run = main_path(torch, "mamba2 spmd", MAMBA_ARGS, mamba_launches, n_params_want=D_MAMBA)
+    # seq 512 in micro-batches of 1: two chunks, so the carried state runs
+    mxc = {**cross_check(torch, MAMBA, seq_len=MAMBA_SEQ, part_mb=1, wire=False),
+           **mamba_kernel_check(torch)}
 
     # 7. the kernels line, then the card
     kernels = [{
@@ -704,12 +922,27 @@ def main() -> int:
         "shape": f"int8 ({wdec['m']}, {wdec['D']}) -> f32 ({wdec['D']},), coded_reduce's "
                  "int8 instantiation",
         "checks_worst_scaled_err": dec_worst,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:73",
+        "launches": mamba_run["launches"]["ssd_scan"],
+        "max_abs_err": tssd["max_abs_err"],
+        "ms": tssd["ms"], "plain_ms": tssd["plain_ms"], "bound_ms": tssd["bound_ms"],
+        "bound_by": tssd["bound_by"], "library_ms": None, "library_none": NO_SSD_LIBRARY,
+        "shape": "x (2, 512, 32, 64) f32, dA f32, B/C (2, 512, 1, 128) bf16 -> y f32, h "
+                 "(2, 32, 64, 128) f32, chunk 256 (kernel tile 64)",
+        "launches_per_step": mamba_run["launches"]["ssd_scan"] / mamba_run["steps"],
+        "checks": ssd_check,
     }]
-    log(f"summary: spmd step {run['step_s']:.4f} / {run_again['step_s']:.4f} s (median, "
-        f"A B B A order), peak {run['peak_gib']:.2f} GiB, losses {run['losses']}; "
-        f"spmd --compress step {wire_run['step_s']:.4f} / {wire_again['step_s']:.4f} s, "
+    log(f"summary: spmd step {run['step_s']:.4f} s (median), peak {run['peak_gib']:.2f} GiB, "
+        f"losses {run['losses']}; spmd --compress step {wire_run['step_s']:.4f} s, "
         f"peak {wire_run['peak_gib']:.2f} GiB, losses {wire_run['losses']}; cross-check {xc}; "
         f"profiles {run['breakdown']} / {wire_run['breakdown']}")
+    log(f"summary: mamba2 spmd step {mamba_run['step_s']:.4f} s (median), peak "
+        f"{mamba_run['peak_gib']:.2f} GiB, losses {mamba_run['losses']}, launches "
+        f"{mamba_run['launches']}; cross-check {mxc}; profile {mamba_run['breakdown']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels import wire
 from repro_torch.kernels.coded_reduce import coded_reduce as _coded_reduce_kernel
 from repro_torch.kernels.coded_reduce import coded_reduce_torch
+from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_torch
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan_kernel
 
 IMPLS = ("cuda", "torch")
 
@@ -51,3 +53,15 @@ def coded_decode_int8(q: torch.Tensor, ws: torch.Tensor, impl: str | None = None
     if _resolve(impl, q) == "torch":
         return wire.coded_decode_int8_torch(q, ws)
     return wire.coded_decode_int8(q, ws)
+
+
+def ssd_scan(
+    x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, *,
+    chunk: int = 128, impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD chunked scan: ``(y (B,S,H,P) f32, h (B,H,P,N) f32)``.
+    Differentiable either way: the kernel through :class:`SSDScanFn`
+    (backward by the plain version), the plain version by autograd."""
+    if _resolve(impl, x) == "torch":
+        return ssd_scan_torch(x, dA, Bm, Cm, chunk)
+    return SSDScanFn.apply(x, dA, Bm, Cm, chunk, _ssd_scan_kernel)

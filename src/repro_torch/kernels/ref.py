@@ -3,7 +3,9 @@
 cannot hide in a shared implementation.  The int8 wire format is defined
 here, as in the JAX package: :func:`quantize_int8` / :func:`dequantize`
 in torch, and :func:`encode_int8_oracle_np`, the bit-level oracle of the
-fused encode, in strict per-operation numpy."""
+fused encode, in strict per-operation numpy.  :func:`ssd_ref` is the SSD
+scan's O(S) sequential recurrence, deliberately not the chunked algorithm
+of the kernel and of its plain version."""
 
 from __future__ import annotations
 
@@ -18,6 +20,28 @@ _INV_127 = np.float32(1.0 / 127.0)
 def coded_reduce_ref(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """g: (P, D), w: (P,) -> (D,) in ``g.dtype``, summed in f32."""
     return torch.einsum("p,pd->d", w.float(), g.float()).to(g.dtype)
+
+
+def ssd_ref(
+    x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+    h0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """O(S) sequential state-space recurrence.  x: (B,S,H,P) pre-multiplied
+    by dt, dA (B,S,H), Bm / Cm (B,S,G,N), optional initial state h0
+    (B,H,P,N).  Returns (y (B,S,H,P) in ``x.dtype``, h (B,H,P,N) f32)."""
+    B, S, H, P = x.shape
+    rep = H // Bm.shape[2]
+    f32 = torch.float32
+    Bh = Bm.repeat_interleave(rep, dim=2).to(f32)
+    Ch = Cm.repeat_interleave(rep, dim=2).to(f32)
+    N = Bm.shape[3]
+    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device) if h0 is None else h0.to(f32)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dA[:, t]).to(f32)  # (B,H)
+        h = h * a[..., None, None] + torch.einsum("bhp,bhn->bhpn", x[:, t].to(f32), Bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 def quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

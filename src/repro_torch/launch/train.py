@@ -7,6 +7,12 @@ Example (one H100, full width):
 and the same on the int8 compressed wire, through the fused encode kernel:
   ... --steps 4 --compress --wire-kernel on
 
+mamba2-370m (the ssm family; every layer's SSD scan is the ssd_scan CUDA
+kernel) at seq 512, two SSD chunks of 256:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+      --backend spmd --scheme heter_aware --s 1 --m 4 --straggler fault --steps 4 \\
+      --seq-len 512
+
 The flags and defaults are the JAX launcher's, plus ``--device``.  The
 ``spmd`` backend runs the m coded workers in turn in this one process on
 one device.  Not accepted yet (their modules are not ported):
@@ -46,7 +52,9 @@ def straggler_from_args(args):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a config of repro_torch.configs; the dense and ssm "
+                         "families are ported (e.g. smollm-360m, mamba2-370m)")
     ap.add_argument("--reduced", action="store_true", help="smoke-scale config")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--scheme", default="heter_aware", choices=list(scheme_names()))
@@ -57,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--s", type=int, default=1)
     ap.add_argument("--m", type=int, default=4, help="coded workers")
     ap.add_argument("--part-mb", type=int, default=2)
-    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="tokens a sequence; an ssm model pads it to a multiple "
+                         "of its SSD chunk (mamba2-370m: 256)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--straggler", default="none", choices=["none", "delay", "fault", "transient"])
     ap.add_argument("--delay", type=float, default=2.0)

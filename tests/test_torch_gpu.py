@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions and the
-wire format's bit oracle, on the card.
+wire format's bit oracle, on the card: coded_reduce, the int8 wire encode
+and decode, and the SSD scan (with its autograd Function).
 
 Marked ``gpu``: they skip with a reason where no CUDA card is present.  On
 the H100 run them with ``python -m pytest -m gpu tests/test_torch_gpu.py``
@@ -171,3 +172,96 @@ def test_cuda_prefetch_side_stream_copies_arrive(cuda_device):
             assert batch[key].device.type == "cuda"
             # read on the current stream, where the consumer computes
             np.testing.assert_array_equal((batch[key] * 1).cpu().numpy(), x)
+
+
+def _ssd_inputs(B, S, H, G, P, N, bc_dtype, dev, seed, model_dA=False):
+    """x·dt, dA, B, C on the card.  ``model_dA``: dt and A as mamba2-370m's
+    layer draws them at init, so cumsum(dA) over 256 rows reaches hundreds
+    below zero; else the draws of tests/test_kernels.py."""
+    r = np.random.default_rng(seed)
+    if model_dA:
+        dt0 = np.exp(r.uniform(size=H) * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+        dt = np.logaddexp(r.normal(size=(B, S, H)) + dt0 + np.log(-np.expm1(-dt0)), 0.0)
+        A = -np.arange(1, H + 1, dtype=np.float64)
+    else:
+        dt = r.uniform(0.01, 0.2, size=(B, S, H))
+        A = -r.uniform(0.3, 2.0, size=(H,))
+    x = r.normal(size=(B, S, H, P)) * dt[..., None]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)  # noqa: E731
+    return (t(x), t(dt * A), t(r.normal(size=(B, S, G, N))).to(bc_dtype),
+            t(r.normal(size=(B, S, G, N))).to(bc_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,G,P,N", [(32, 2, 1, 8, 16), (64, 4, 2, 16, 32), (64, 4, 4, 8, 8),
+                                       (96, 8, 2, 32, 16), (130, 2, 1, 64, 128)])
+@pytest.mark.parametrize("bc", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_ssd_scan_matches_plain(cuda_device, S, H, G, P, N, bc):
+    """The kernel (64-row tiles, a ragged last one where S % 64 != 0) against
+    the plain chunked version, atol 1e-4 / rtol 1e-3 as tests/test_kernels.py."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+
+    chunk = S // 2
+    x, dA, Bm, Cm = _ssd_inputs(2, S, H, G, P, N, bc, cuda_device, S + G)
+    before = ssd_scan.launches
+    y, h = ssd_scan(x, dA, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, chunk)
+    assert y.dtype == h.dtype == torch.float32 and y.shape == x.shape and h.shape == (2, H, P, N)
+    torch.testing.assert_close(y, py, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(h, ph, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_masked_triangle_is_nan_free(cuda_device):
+    """The full mamba2 layer (B=2, S=512, H=32, P=64, N=128, chunk 256) with
+    the model's dA: exp above the diagonal would be +inf, so a mask applied
+    after the exp gives NaN.  The kernel is finite and within 1e-3 of
+    max|plain| (the decay is exp of a difference of cumulative sums that
+    the two round in different orders)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+
+    x, dA, Bm, Cm = _ssd_inputs(2, 512, 32, 1, 64, 128, torch.bfloat16, cuda_device, 0,
+                                model_dA=True)
+    assert float(dA.reshape(2, 2, 256, 32).cumsum(2).min()) < -300
+    y, h = ssd_scan(x, dA, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, 256)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert float((y - py).abs().max()) <= 1e-3 * float(py.abs().max())
+    assert float((h - ph).abs().max()) <= 1e-3 * float(ph.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_fn_grads_match_plain(cuda_device):
+    """Through ops.ssd_scan on the card (the kernel forward, the plain
+    version's backward) the gradients equal plain autograd's: the backward
+    differentiates the same function of the same saved inputs."""
+    from repro_torch.kernels import ops
+
+    ins = _ssd_inputs(2, 128, 4, 2, 16, 32, torch.bfloat16, cuda_device, 3)
+    gy = torch.randn(2, 128, 4, 16, device=cuda_device)
+    grads = []
+    for impl in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, _ = ops.ssd_scan(*leaves, chunk=64, impl=impl)
+        grads.append(torch.autograd.grad((y * gy).sum(), leaves))
+    for a, b, t in zip(*grads, ins):
+        assert a.dtype == t.dtype
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    x, dA, Bm, Cm = _ssd_inputs(1, 64, 2, 1, 8, 16, torch.float32, cuda_device, 1)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x.double(), dA, Bm, Cm, 32)
+    with pytest.raises(TypeError, match="share a dtype"):
+        ssd_scan(x, dA, Bm, Cm.bfloat16(), 32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssd_scan(x[..., :6].contiguous(), dA, Bm, Cm, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dA, Bm, Cm, 32)

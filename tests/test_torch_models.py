@@ -1,9 +1,14 @@
-"""The port's dense LM and AdamW against the JAX package at equal weights.
+"""The port's LM (dense and ssm families) and AdamW against the JAX package
+at equal weights.
 
 ``jax.random`` init cannot be replayed in torch, so the JAX parameters are
 converted into the port (``params_from_numpy``) and both sides run the
-same numpy batch, on the reduced f32 configs.
+same numpy batch, on the reduced f32 configs.  mamba2-370m is also built
+in bf16, the first model of mixed dtype (``A_log``, ``D`` and ``dt_bias``
+stay f32), to hold the converter, the ravel order and ``FlatView`` to
+JAX's ``ravel_pytree`` there.
 """
+import dataclasses
 
 import functools
 
@@ -23,7 +28,7 @@ from repro_torch.optim.adam import adamw_init, adamw_update
 
 torch.set_num_threads(2)
 
-ARCHS = ["smollm-360m", "llama3.2-1b"]
+ARCHS = ["smollm-360m", "llama3.2-1b", "mamba2-370m"]
 
 
 def _batch(cfg, B=3, S=16, seed=0):
@@ -33,17 +38,22 @@ def _batch(cfg, B=3, S=16, seed=0):
             "weight": r.uniform(0.1, 1.0, (B,)).astype(np.float32)}
 
 
+def _reduced(get, arch, dtype):
+    cfg = get(arch).reduced()
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_side(arch, seed):
-    jm = jbuild(jget_config(arch).reduced())
+def _jax_side(arch, seed, dtype=None):
+    jm = jbuild(_reduced(jget_config, arch, dtype))
     jp = jax.jit(jm.init)(jax.random.PRNGKey(seed))
     return jm, jp, jax.jit(jax.value_and_grad(jm.weighted_loss))
 
 
-def _setup(arch, seed=0):
+def _setup(arch, seed=0, dtype=None):
     """(JAX model, JAX params, port model, converted port params)."""
-    jm, jp, _ = _jax_side(arch, seed)
-    tm = build_model(get_config(arch).reduced())
+    jm, jp, _ = _jax_side(arch, seed, dtype)
+    tm = build_model(_reduced(get_config, arch, dtype))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jm, jp, tm, tp
 
@@ -63,6 +73,66 @@ def test_converter_round_trip_and_ravel_order():
     flat_t = torch.cat([p.reshape(-1) for p in tp.values()]).numpy()
     np.testing.assert_array_equal(flat_t, np.asarray(ravel_pytree(jp)[0]))
     assert list(flatten_tree(back)) == list(tp)
+
+
+def test_converter_round_trip_and_ravel_order_mixed_dtypes():
+    """bf16 mamba2: the converter carries each leaf's dtype key for key, and
+    raveling in key order (each leaf cast to f32) is ``ravel_pytree``'s
+    flat vector."""
+    from jax.flatten_util import ravel_pytree
+
+    from repro_torch.core.aggregator import FlatView
+
+    _, jp, _, tp = _setup("mamba2-370m", dtype="bfloat16")
+    jflat = flatten_tree(jax.tree.map(np.asarray, jp))
+    assert list(tp) == list(jflat)
+    f32_leaves = {k for k, v in tp.items() if v.dtype == torch.float32}
+    assert f32_leaves == {f"blocks.0.mamba.{k}" for k in ("A_log", "D", "dt_bias")}
+    for k, v in tp.items():
+        assert str(v.dtype).split(".")[-1] == str(jflat[k].dtype), k
+    back = params_to_numpy(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(jax.tree.map(np.asarray, jp))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+    view = FlatView(tp)
+    row = torch.empty(view.size, dtype=torch.float32)
+    view.write(row, list(tp.values()))
+    np.testing.assert_array_equal(row.numpy(), np.asarray(ravel_pytree(jp)[0], np.float32))
+
+
+def test_flat_view_unravel_dtypes_follow_ravel_pytree_mixed():
+    """With mixed dtypes JAX's unravel casts each leaf back to its own
+    dtype; the port's FlatView gives every leaf the same dtype (bf16 leaves,
+    A_log / D / dt_bias f32), and the same values."""
+    from jax.flatten_util import ravel_pytree
+
+    from repro_torch.core.aggregator import FlatView
+
+    _, jp, _, tp = _setup("mamba2-370m", dtype="bfloat16")
+    flat, unravel = ravel_pytree(jp)
+    assert flat.dtype == jnp.float32
+    noise = np.random.default_rng(0).normal(size=flat.shape).astype(np.float32)
+    jback = flatten_tree(jax.tree.map(np.asarray, unravel(jnp.asarray(noise))))
+    tback = FlatView(tp).unravel(torch.from_numpy(noise))
+    assert list(tback) == list(jback)
+    for k, v in tback.items():
+        assert str(v.dtype).split(".")[-1] == str(jback[k].dtype), k
+        np.testing.assert_array_equal(v.float().numpy(), np.asarray(jback[k], np.float32))
+
+
+def test_mamba_init_deterministic_leaves_bit_equal():
+    """The leaves of the mamba2 init that draw no random numbers have the
+    JAX init's bits: A_log = log(1..H), D and norm ones, conv_b zeros."""
+    for dtype in (None, "bfloat16"):
+        _, _, tm, tp = _setup("mamba2-370m", dtype=dtype)
+        own = tm.init(torch.Generator().manual_seed(0), "cpu")
+        for leaf in ("A_log", "D", "norm", "conv_b"):
+            k = f"blocks.0.mamba.{leaf}"
+            assert own[k].dtype == tp[k].dtype
+            assert torch.equal(own[k].view(torch.int16 if own[k].dtype == torch.bfloat16
+                                           else torch.int32),
+                               tp[k].view(torch.int16 if tp[k].dtype == torch.bfloat16
+                                          else torch.int32)), k
 
 
 def test_port_init_has_the_jax_layout():
@@ -136,4 +206,4 @@ def test_one_adamw_step_matches(bf16):
 
 def test_non_dense_family_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("mamba2-370m").reduced())
+        build_model(get_config("mixtral-8x7b").reduced())

@@ -1,12 +1,13 @@
 """The port's CodedTrainer against the JAX package's, end to end.
 
-Reduced smollm-360m (f32), heter_aware, m=4, one faulted worker per step
-(``--straggler fault``), 4 steps, at equal converted weights: the control
-plane metrics of every step are equal and the loss agrees to rtol 1e-4.
+Reduced smollm-360m and mamba2-370m (f32), heter_aware, m=4, one faulted
+worker per step (``--straggler fault``), 4 steps, at equal converted
+weights: the control plane metrics of every step are equal and the loss
+agrees to rtol 1e-4.
 The port runs its main path, the ``spmd`` backend; the JAX trainer runs
 its default ``fused`` backend (its spmd backend needs m devices).  Also:
-the port's launcher runs to its JSON summary on the CPU, uncompressed and on
-the int8 wire (``--compress --wire-kernel on``); a non-finite compressed
+the port's launcher runs to its JSON summary on the CPU, uncompressed, on
+the int8 wire (``--compress --wire-kernel on``) and on mamba2; a non-finite compressed
 decode zeroes the error feedback; and neither the port's modules,
 ``chip_smoke.py`` nor its main path, compressed or not, load ``jax`` or
 ``repro``.
@@ -49,14 +50,14 @@ def _trainer_kwargs():
     return dict(m=M, part_mb=2, true_speeds=np.linspace(1.0, 2.0, M), rng=0)
 
 
-def test_trainer_metrics_match_jax_trainer():
+def _assert_trainer_matches_jax(arch):
     tc_kw = dict(lr=1e-3, warmup_steps=1, total_steps=STEPS, seed=0)
-    jcfg = jget_config("smollm-360m").reduced()
+    jcfg = jget_config(arch).reduced()
     jtr = JTrainer(jbuild(jcfg), JCodingConfig(scheme="heter_aware", s=1),
                    JTrainConfig(**tc_kw), straggler_model=JDelay(s=1, delay=np.inf),
                    **_trainer_kwargs())
     jstate = jtr.init_state(jax.random.PRNGKey(0))
-    ttr = CodedTrainer(build_model(get_config("smollm-360m").reduced()),
+    ttr = CodedTrainer(build_model(get_config(arch).reduced()),
                        CodingConfig(scheme="heter_aware", s=1), TrainConfig(**tc_kw),
                        straggler_model=FixedDelayStragglers(s=1, delay=np.inf),
                        backend="spmd", device="cpu", **_trainer_kwargs())
@@ -74,6 +75,17 @@ def test_trainer_metrics_match_jax_trainer():
         np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=1e-4)
         np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"], rtol=1e-4)
         assert tstate.step == jstate.step
+
+
+def test_trainer_metrics_match_jax_trainer():
+    _assert_trainer_matches_jax("smollm-360m")
+
+
+def test_trainer_metrics_match_jax_trainer_mamba2():
+    """The ssm family: mixed into the spmd wire as f32 (the reduced config
+    is all f32), through ``ops.ssd_scan``'s plain version on the CPU; seq 16
+    is two SSD chunks of 8, so the carried state runs."""
+    _assert_trainer_matches_jax("mamba2-370m")
 
 
 class _JToy:
@@ -144,6 +156,20 @@ def test_launcher_runs_on_cpu(capsys):
     assert all(h["n_used"] >= 2 and h["exact"] == 1.0 for h in out["history"])
 
 
+def test_launcher_runs_mamba2_on_cpu(capsys):
+    from repro_torch.launch.train import main
+
+    out = main(["--arch", "mamba2-370m", "--reduced", "--backend", "spmd", "--m", "4",
+                "--straggler", "fault", "--steps", "2", "--seq-len", "20", "--device", "cpu"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary == out["summary"]
+    assert summary["steps_run"] == 2 and np.isfinite(summary["final_loss"])
+    assert all(h["n_used"] >= 2 and h["exact"] == 1.0 for h in out["history"])
+    params = out["state"].params
+    assert {k for k, v in params.items() if v.dtype != torch.float32} == set()
+    assert "blocks.0.mamba.A_log" in params and "blocks.0.attn.wq" not in params
+
+
 def test_launcher_runs_compressed_wire_on_cpu(capsys):
     from repro_torch.launch.train import main
 
@@ -210,6 +236,7 @@ def test_main_path_never_loads_jax_or_repro():
         "main(args)\n"
         "main(args + ['--compress', '--wire-kernel', 'on'])\n"
         "main(args + ['--compress', '--wire-kernel', 'auto'])\n"
+        "main(['--arch', 'mamba2-370m'] + args[2:])\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
