@@ -16,7 +16,10 @@ never imports ``jax`` or the JAX package):
      reduce is the CUDA ``coded_reduce``) over the sweep, edge shapes, the
      EPS floor, an error-feedback chain, NaN and in-place cases; the SSD
      scan's y and h over the JAX test's shapes (G > 1, f32 and bf16 B/C)
-     and the full mamba2 layer with the model's dA (finite);
+     and the full mamba2 layer with the model's dA (finite); flash attention
+     over the JAX test's shapes (causal or not, window None or 32, f32 and
+     bf16), ragged S up to 2047 with windows 1 and > S, hd = 128, and the
+     full prefill shapes;
   4. each kernel's time at the main path's shapes (CUDA events, median)
      beside its bound, the plain version's time, the unfused composition's
      time for the wire kernels, and one PyTorch library call computing the
@@ -41,10 +44,26 @@ never imports ``jax`` or the JAX package):
      L2 <= 1e-4), and the loss and gradients through the SSD kernel
      against the plain version (1e-4 relative; relative L2 1e-3 over all
      leaves and over each mamba leaf alone);
-  7. a JSON line of the kernels, then the card as the last line.
+  7. serving at full width, random bf16 weights from seed 0, for
+     smollm-360m and mamba2-370m: ``LMServer.generate`` (4 prompts of 1024
+     tokens, 64 new) and ``ServingEngine.run`` on the trace of
+     examples/serve_lm.py at real prompt lengths (16 requests, prompts of
+     128-2048 tokens, 32-128 new, Poisson arrivals, 8 slots, a coded-prefill
+     ReplicaPool of 8 replicas with 2 stragglers); every request completes
+     with tokens in [0, vocab), the prefill kernel (flash attention, or the
+     SSD scan) launches once per layer and prefill call and never in
+     decode; prefill and decode-step times, tokens per wall second, TTFT
+     on the virtual clock against wait-for-all, peak memory;
+  8. the serving cross-checks in f32 with TF32 off: prefill through the
+     kernel against the plain version (logits within 1e-4 of max|logit|,
+     cache leaves), ``generate`` tokens equal, and continuous batching equal
+     to sequential decode, a parting token allowed only at a near-tie (top-2
+     gap <= 1e-5 of max|logit|); in bf16 the kernel-vs-plain logit
+     difference and token agreement are printed, not held;
+  9. a JSON line of the kernels, then the card as the last line.
 
-Each main path is driven with every kernel's launch count set to 0 just
-before it and read just after.  Exits non-zero, printing no result,
+Each main path and serving path is driven with every kernel's launch count
+set to 0 just before it and read just after.  Exits non-zero, printing no result,
 without a CUDA card or outside a checkout.  Any failed phase exits non-zero.
 """
 
@@ -76,6 +95,21 @@ SSD_FULL = dict(B=2, S=MAMBA_SEQ, H=32, P=64, G=1, N=128, chunk=256)
 SSD_TILE = 64  # the kernel's own tile along S (csrc/ssd_scan.cu kT)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 F32_FLOPS = 67e12  # H100 SXM published f32 rate outside the tensor cores
+# H100 SXM published dense bf16 tensor-core rate (NVIDIA H100 datasheet,
+# without sparsity): the least time of bf16 attention, whatever unit runs it
+BF16_FLOPS = 989.4e12
+# serving: smollm-360m's attention heads, and the full-width traffic
+SMOLLM_HEADS = dict(H=15, K=5, hd=64)
+SMOLLM_LAYERS = 32
+FLASH_TIMED = dict(B=4, S=1024)  # the generate path's prefill shape
+GEN = dict(B=4, S=1024, new=64, cache_len=1088)
+TRACE = dict(n=16, prompt=(128, 2048), new=(32, 128), gap_s=0.3, n_slots=8, cache_len=2176,
+             m=8, s=2, delay=5.0)
+# flash_attention against its plain version beyond the JAX test's shapes:
+# (atol, rtol).  In bf16 one spacing of the value (2^-7 of it at most) over
+# a floor for values near zero; in f32 a few f32 spacings of summation order.
+FLASH_TOL = {"bf16": (1e-4, 2.0**-7), "f32": (1e-5, 1e-5)}
+NEAR_TIE = 1e-5  # a parting token passes only at a top-2 gap <= this x max|logit|
 NO_LIBRARY = ("no single PyTorch call computes it: torch.mv takes no int8 input, "
               "and PyTorch has no fused reduce + int8 quantize")
 NO_SSD_LIBRARY = "no single PyTorch call computes an SSD scan"
@@ -114,10 +148,10 @@ def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes over the HBM rate or
-    f32 operations over the f32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    operations over ``rate`` (default the f32 rate), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -386,11 +420,13 @@ def time_decode(torch, m: int, D: int) -> dict:
 
 def launch_counters() -> dict:
     from repro_torch.kernels.coded_reduce import coded_reduce
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
 
     return {"coded_reduce": coded_reduce, "coded_encode_int8": coded_encode_int8,
-            "coded_decode_int8": coded_decode_int8, "ssd_scan": ssd_scan}
+            "coded_decode_int8": coded_decode_int8, "ssd_scan": ssd_scan,
+            "flash_attention": flash_attention}
 
 
 def main_path(torch, label: str, args: list[str], expected, on_step=None,
@@ -666,7 +702,10 @@ def check_ssd_vs_plain(torch) -> dict:
     chunked version on the card.  The shapes of tests/test_kernels.py
     (G > 1 among them; chunk S/4), f32 and bf16 B/C, within atol 1e-4 /
     rtol 1e-3 as the JAX test; then the full mamba2 layer (chunk 256,
-    model-drawn dA) within 1e-3 x max|plain|, finite.  The decay is exp of a
+    model-drawn dA) within 1e-3 x max|plain|, finite: at the training shape
+    with bf16 and f32 B/C, and at the serving prefills' shapes (B=4 S=1024
+    of ``generate``, B=1 S=2048 of the engine's longest prompt) with bf16
+    B/C, as the bf16 model gives them.  The decay is exp of a
     difference of cumulative sums, which the two sum in different orders
     (64-row tiles against 256-row chunks): where |cumsum| reaches hundreds,
     the f32 spacing (6e-5 at 800) moves the decay by about 1e-4 relative."""
@@ -690,9 +729,14 @@ def check_ssd_vs_plain(torch) -> dict:
                 if not ok:
                     raise AssertionError(f"ssd_scan S={S_} H={H} G={G} P={P} N={N} {bc_name} disagrees")
                 worst = max(worst, *errs)
-    f = SSD_FULL
     full = {}
-    for bc_name, bc in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    for B_, S_, bc_name, bc in (
+        (SSD_FULL["B"], SSD_FULL["S"], "bf16", torch.bfloat16),
+        (SSD_FULL["B"], SSD_FULL["S"], "f32", torch.float32),
+        (GEN["B"], GEN["S"], "bf16", torch.bfloat16),
+        (1, TRACE["prompt"][1], "bf16", torch.bfloat16),
+    ):
+        f = dict(SSD_FULL, B=B_, S=S_)
         x, dA, Bm, Cm = ssd_inputs(torch, f["B"], f["S"], f["H"], f["P"], f["G"], f["N"], bc,
                                    11, model_dA=True)
         low = float(dA.reshape(f["B"], -1, f["chunk"], f["H"]).cumsum(2).min())
@@ -708,8 +752,9 @@ def check_ssd_vs_plain(torch) -> dict:
             f"finite {finite}, max_abs_err y {ey:.3e} (limit {ty:.3e}), h {eh:.3e} "
             f"(limit {th:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"ssd_scan at the full layer shape ({bc_name}) disagrees")
-        full[bc_name] = dict(max_abs_err=max(ey, eh), min_cumsum=low)
+            raise AssertionError(f"ssd_scan at the full layer shape B={B_} S={S_} ({bc_name}) "
+                                 "disagrees")
+        full[f"B{B_}_S{S_}_{bc_name}"] = dict(max_abs_err=max(ey, eh), min_cumsum=low)
         del x, dA, Bm, Cm, y, h, py, ph
     torch.cuda.empty_cache()
     return dict(worst_small=worst, full=full)
@@ -804,6 +849,426 @@ def mamba_kernel_check(torch) -> dict:
     return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel, mamba_leaf_rel_l2=leaf_rel)
 
 
+def flash_inputs(torch, B, S, H, K, hd, dtype, seed):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, S, n, hd, generator=gen, device=dev).to(dtype) for n in (H, K, K)]
+
+
+def check_flash_vs_plain(torch) -> dict:
+    """Phase 3, flash attention: the kernel against its plain version on
+    the card.  The JAX test's shapes (causal or not, window None or 32, f32
+    and bf16) at its tolerances, 2e-3 at f32 and 3e-2 at bf16.  Then ragged
+    S at smollm-360m's heads with windows 1 and wider than S, hd = 128, and
+    the full prefill shapes (bf16, causal), finite, at FLASH_TOL: both sides
+    compute in f32 and round once to the output dtype, so they may part by
+    one bf16 spacing of the value (at most 2^-7 of it) and no more."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sweep_tol = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (3e-2, 3e-2)}
+    h = SMOLLM_HEADS
+    cases = []
+    for S_, H, K, hd in [(64, 4, 2, 32), (128, 6, 3, 32), (128, 8, 8, 64), (64, 5, 1, 16)]:
+        for causal in (True, False):
+            for window in (None, 32):
+                for dt in (torch.float32, torch.bfloat16):
+                    cases.append((2, S_, H, K, hd, dt, causal, window, sweep_tol[dt]))
+    for S_ in (1, 100, 1000, 2047):
+        for window in (None, 1, S_ + 1):
+            cases.append((1, S_, h["H"], h["K"], h["hd"], torch.bfloat16, True, window,
+                          FLASH_TOL["bf16"]))
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cases.append((2, 300, 8, 2, 128, dt, True, None, FLASH_TOL[name]))
+    worst = 0.0
+    for i, (B, S_, H, K, hd, dt, causal, window, (atol, rtol)) in enumerate(cases):
+        q, k, v = flash_inputs(torch, B, S_, H, K, hd, dt, i)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_torch(q, k, v, causal=causal, window=window)
+        err = float((out.float() - ref.float()).abs().max())
+        finite = bool(torch.isfinite(out.float()).all())
+        ok = finite and out.dtype == dt and bool(torch.allclose(out.float(), ref.float(),
+                                                                atol=atol, rtol=rtol))
+        log(f"check flash_attention B={B} S={S_} H={H} K={K} hd={hd} {str(dt)[6:]} "
+            f"causal={causal} window={window}: finite {finite}, max_abs_err {err:.3e} "
+            f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention case {i} disagrees with the plain version")
+        worst = max(worst, err)
+    full = {}
+    atol, rtol = FLASH_TOL["bf16"]
+    for B, S_ in ((1, 2048), (4, 1024)):
+        q, k, v = flash_inputs(torch, B, S_, h["H"], h["K"], h["hd"], torch.bfloat16, B)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_torch(q, k, v, causal=True)
+        err = float((out.float() - ref.float()).abs().max())
+        finite = bool(torch.isfinite(out.float()).all())
+        ok = finite and bool(torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol))
+        log(f"check flash_attention full prefill B={B} S={S_} H={h['H']} K={h['K']} "
+            f"hd={h['hd']} bf16 causal: finite {finite}, max_abs_err {err:.3e} (atol {atol:g}, "
+            f"rtol {rtol:g}; max|plain| {float(ref.float().abs().max()):.3f}, rms "
+            f"{float(ref.float().pow(2).mean().sqrt()):.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention at the full prefill shape B={B} S={S_}")
+        full[f"B{B}_S{S_}"] = err
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return dict(cases=len(cases) + len(full), worst_small=worst, full=full)
+
+
+def time_flash(torch) -> dict:
+    """Phase 4, flash attention at the generate path's prefill shape (B=4,
+    S=1024, smollm-360m's heads, bf16, causal): kernel, plain version, and
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    (B, H, S, hd) views as the library call (timed here, never used by the
+    port).  The bound counts the least work, the causal half of the two
+    products, 4 * hd * B * H * S(S+1)/2 operations over the bf16
+    tensor-core rate, against q, k, v and o moved once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, S_ = FLASH_TIMED["B"], FLASH_TIMED["S"]
+    H, K, hd = SMOLLM_HEADS["H"], SMOLLM_HEADS["K"], SMOLLM_HEADS["hd"]
+    q, k, v = flash_inputs(torch, B, S_, H, K, hd, torch.bfloat16, 99)
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention_torch(q, k, v, causal=True)
+    err = float((out.float() - ref.float()).abs().max())
+    lib = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         is_causal=True, enable_gqa=True).transpose(1, 2)
+    lib_err = float((lib.float() - ref.float()).abs().max())
+    del ref, lib
+    ms = time_cuda(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = time_cuda(lambda: fa.flash_attention_torch(q, k, v, causal=True), reps=5, warmup=1)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    flops = 4 * hd * B * H * S_ * (S_ + 1) // 2
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+    res = dict(B=B, S=S_, **SMOLLM_HEADS, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, library_max_abs_err=lib_err,
+               flops=flops, nbytes=nbytes, TFLOPs=flops / ms / 1e9)
+    log(f"time flash_attention B={B} S={S_} H={H} K={K} hd={hd} bf16 causal: kernel {ms:.4f} ms "
+        f"({res['TFLOPs']:.2f} TFLOP/s of the least {flops / 1e9:.3f} GFLOP; bound "
+        f"{bound_ms:.4f} ms by {bound_by} over {nbytes / 1e6:.2f} MB, {bound_ms / ms:.1%} of it), "
+        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
+        f"(its max_abs_err {lib_err:.3e}), kernel max_abs_err {err:.3e}")
+    del q, k, v, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def greedy_trace(torch, model, params, tokens, steps: int, cache_len: int):
+    """LMServer.generate's loop (no EOS, no budgets) with each step's top-2
+    logit gap and max|logit| kept: tokens, gaps, maxima as (B, steps)
+    numpy arrays.  Token i is the argmax of the i-th logits."""
+    toks, gaps, tops = [], [], []
+    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+    for i in range(steps):
+        lf = logits.float()
+        top2 = lf.topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        tops.append(lf.abs().amax(-1))
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        toks.append(tok[:, 0])
+        if i + 1 < steps:
+            logits, cache = model.decode_step(params, tok, cache)
+    stack = lambda xs: torch.stack(xs, 1).cpu().numpy()  # noqa: E731
+    return stack(toks), stack(gaps), stack(tops)
+
+
+def tokens_agree(label: str, got, ref, gaps, tops) -> dict:
+    """``got`` against ``ref`` row by row: equal, or parting first where the
+    reference's top-2 gap is at most NEAR_TIE x its max|logit| (a near-tie
+    that a last-bit difference may flip).  Raises otherwise."""
+    import numpy as np
+
+    parted = []
+    for b in range(ref.shape[0]):
+        diff = np.flatnonzero(got[b] != ref[b])
+        if not diff.size:
+            continue
+        i = int(diff[0])
+        rel = float(gaps[b, i] / max(tops[b, i], 1e-30))
+        log(f"  {label} row {b}: tokens part at step {i} of {ref.shape[1]}, the reference's "
+            f"top-2 gap there {gaps[b, i]:.3e} = {rel:.3e} of max|logit| (limit {NEAR_TIE:g}) "
+            f"{'ok (near-tie)' if rel <= NEAR_TIE else 'FAIL'}")
+        if rel > NEAR_TIE:
+            raise AssertionError(f"{label}: row {b} parts at step {i} with no near-tie")
+        parted.append(dict(row=b, step=i, rel_gap=rel))
+    log(f"  {label}: {ref.shape[0] - len(parted)} of {ref.shape[0]} rows equal over "
+        f"{ref.shape[1]} tokens")
+    return dict(rows=int(ref.shape[0]), parted=parted)
+
+
+def full_model(torch, arch: str, dtype: str | None = None, **impl):
+    """The full-width model from seed 0, in the config's dtype (or
+    ``dtype``), on the card; with its parameter count checked."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg, **impl)
+    dev = torch.device("cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    want = D_FULL if arch == ARCH else D_MAMBA
+    if model.param_count(params) != want:
+        raise AssertionError(f"{arch}: {model.param_count(params)} parameters, expected {want}")
+    return cfg, model, params
+
+
+def serve_path(torch, arch: str) -> dict:
+    """Phase 7: serving at full width, random bf16 weights from seed 0.
+    ``LMServer.generate`` on B=4 prompts of 1024 tokens, 64 new, then
+    ``ServingEngine.run`` on the trace of examples/serve_lm.py at real
+    prompt lengths, with every kernel's launch count set to 0 just before
+    each and read just after.  The prefill kernel (flash attention for
+    smollm, the SSD scan for mamba2) launches once per layer and prefill
+    call and never in decode; every request completes with tokens in
+    [0, vocab)."""
+    import numpy as np
+
+    from repro_torch.approx.deadline import SLOPolicy
+    from repro_torch.core.straggler import FixedDelayStragglers
+    from repro_torch.serve import ReplicaPool, Request, ServingEngine
+    from repro_torch.train.serve import LMServer
+
+    cfg, model, params = full_model(torch, arch)
+    kernel = "flash_attention" if arch == ARCH else "ssd_scan"
+    layers = SMOLLM_LAYERS if arch == ARCH else MAMBA_LAYERS
+    counters = launch_counters()
+    server = LMServer(model)
+    calls = {"prefill": [], "decode": [], "prefill_launches": 0, "decode_launches": 0}
+    server._prefill = timed(torch, server._prefill, calls, "prefill", counters)
+    server._decode = timed(torch, server._decode, calls, "decode", counters)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (GEN["B"], GEN["S"])).astype(np.int32)
+
+    def check(label, want_prefills, toks, peak, wall):
+        launches = {name: fn.launches for name, fn in counters.items()}
+        want = {name: 0 for name in counters}
+        want[kernel] = layers * want_prefills
+        in_range = bool(((toks >= 0) & (toks < cfg.vocab)).all())
+        ok = (launches == want and len(calls["prefill"]) == want_prefills and in_range
+              and calls["decode_launches"] == 0)
+        log(f"serve {arch} {label}: {len(calls['prefill'])} prefill calls, launches {launches} "
+            f"(expected {want}), kernel launches during decode {calls['decode_launches']}, "
+            f"tokens in [0, {cfg.vocab}) {in_range}, peak memory {peak / 2**30:.2f} GiB, "
+            f"{wall:.2f} s wall {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serve {arch} {label}: launches or tokens wrong")
+        return launches
+
+    # LMServer.generate
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    gen_toks = server.generate(params, {"tokens": prompts}, GEN["new"], cache_len=GEN["cache_len"])
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_launches = check("LMServer.generate", 1, gen_toks, torch.cuda.max_memory_allocated(),
+                         gen_wall)
+    if gen_toks.shape != (GEN["B"], GEN["new"]):
+        raise AssertionError(f"generate returned {gen_toks.shape}")
+    gen_prefill_ms = calls["prefill"][0] * 1e3
+    gen_decode_ms = statistics.median(calls["decode"]) * 1e3
+    log(f"serve {arch} generate B={GEN['B']} S={GEN['S']} new={GEN['new']}: prefill "
+        f"{gen_prefill_ms:.2f} ms, decode step median {gen_decode_ms:.2f} ms, "
+        f"{gen_toks.size / gen_wall:.1f} generated tokens per wall second")
+
+    # ServingEngine.run on the trace of examples/serve_lm.py
+    tr = TRACE
+    trng = np.random.default_rng(0)
+    pool = ReplicaPool(trng.uniform(1.0, 4.0, tr["m"]), s=tr["s"], k=2 * tr["m"],
+                       straggler_model=FixedDelayStragglers(s=tr["s"], delay=tr["delay"]),
+                       policy=SLOPolicy.for_slo(ttft_slo_s=np.inf), seed=0)
+    arrivals = np.cumsum(trng.exponential(tr["gap_s"], tr["n"]))
+    reqs = [Request(rid=i,
+                    tokens=trng.integers(0, cfg.vocab,
+                                         (int(trng.integers(tr["prompt"][0], tr["prompt"][1] + 1)),)),
+                    max_new_tokens=int(trng.integers(tr["new"][0], tr["new"][1] + 1)),
+                    arrival_t=float(arrivals[i]))
+            for i in range(tr["n"])]
+    engine = ServingEngine(server, params, n_slots=tr["n_slots"], cache_len=tr["cache_len"],
+                           replicas=pool, decode_dt=None)
+    calls.update(prefill=[], decode=[], prefill_launches=0, decode_launches=0)
+    # the engine's batched decode step, timed and counted alike
+    engine.batch._step = timed(torch, engine.batch._step, calls, "decode", counters)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    comps, metrics = engine.run(reqs)
+    torch.cuda.synchronize()
+    eng_wall = time.perf_counter() - t0
+    all_toks = np.concatenate([c.tokens for c in comps]) if comps else np.zeros(0, np.int32)
+    eng_launches = check("ServingEngine.run", tr["n"], all_toks,
+                         torch.cuda.max_memory_allocated(), eng_wall)
+    done = sorted(c.rid for c in comps)
+    counts_ok = all(len(c.tokens) == reqs[c.rid].max_new_tokens for c in comps)
+    if done != list(range(tr["n"])) or not counts_ok:
+        raise AssertionError(f"serve {arch}: completed {done}, token counts ok {counts_ok}")
+    summ = metrics.summary()
+    ttft_all = [r.prefill_all_done_t - r.arrival_t + (r.first_token_t - r.prefill_done_t)
+                for r in metrics.records]
+    res = dict(
+        generate=dict(launches=gen_launches, prefill_ms=gen_prefill_ms,
+                      decode_step_ms=gen_decode_ms, tokens_per_wall_s=gen_toks.size / gen_wall,
+                      wall_s=gen_wall),
+        engine=dict(launches=eng_launches, prefill_calls=len(calls["prefill"]),
+                    prefill_ms_median=statistics.median(calls["prefill"]) * 1e3,
+                    decode_step_ms_median=statistics.median(calls["decode"]) * 1e3,
+                    decode_steps=len(calls["decode"]), tokens=int(all_toks.size),
+                    tokens_per_wall_s=all_toks.size / eng_wall, wall_s=eng_wall,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    ttft_p50_s=summ["ttft_p50_s"], ttft_p99_s=summ["ttft_p99_s"],
+                    ttft_wait_for_all_p50_s=float(np.percentile(ttft_all, 50)),
+                    ttft_wait_for_all_p99_s=float(np.percentile(ttft_all, 99)),
+                    prompt_tokens=int(sum(len(r.tokens) for r in reqs))),
+        gen_tokens=gen_toks, prompts=prompts)
+    e = res["engine"]
+    log(f"serve {arch} ServingEngine: {tr['n']} requests ({e['prompt_tokens']} prompt tokens, "
+        f"{e['tokens']} generated) in {eng_wall:.2f} s wall: prefill per request median "
+        f"{e['prefill_ms_median']:.2f} ms, decode step median {e['decode_step_ms_median']:.2f} ms "
+        f"over {e['decode_steps']} steps of {tr['n_slots']} slots, {e['tokens_per_wall_s']:.1f} "
+        f"generated tokens per wall second; TTFT on the virtual clock p50 {e['ttft_p50_s']:.3f} s "
+        f"p99 {e['ttft_p99_s']:.3f} s against wait-for-all p50 {e['ttft_wait_for_all_p50_s']:.3f} "
+        f"s p99 {e['ttft_wait_for_all_p99_s']:.3f} s; peak memory {e['peak_gib']:.2f} GiB; "
+        "device busy share not measured (CUDA events give elapsed time, not busy time, and no "
+        "profiled step is added)")
+    del engine, server, model, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def timed(torch, fn, calls: dict, key: str, counters: dict):
+    """``fn`` wrapped to synchronize after each call, append its wall
+    seconds to ``calls[key]`` and add the kernel launches it made to
+    ``calls[key + "_launches"]``."""
+
+    def wrapped(*a, **kw):
+        before = sum(c.launches for c in counters.values())
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        calls[key].append(time.perf_counter() - t0)
+        calls[key + "_launches"] += sum(c.launches for c in counters.values()) - before
+        return out
+
+    return wrapped
+
+
+def serve_cross_check(torch, arch: str, served: dict) -> dict:
+    """Phase 8, the kernel on the serving path against the plain version,
+    with TF32 off.  In bf16 (not held: the kernel keeps p in f32, the plain
+    model path rounds it): the last-position logits and phase 7's generate
+    tokens against ``attn_impl`` / ``ssd_impl="torch"``; beside them, the
+    plain path against itself with the embedding one bf16 ulp up, and both
+    bf16 paths' logits and tokens against the f32 plain model's.  In f32, held:
+    prefill's last-position logits within 1e-4 of max|logit|; the cache
+    leaves that no kernel touched (layer 0's k and v, or its conv inputs)
+    equal, the others within 1e-4 (k, v, conv) or 1e-3 (the SSD state, as
+    the full-layer scan check) of their max; ``generate``'s tokens equal,
+    and ``ServingEngine``'s continuous batch equal to sequential B=1 decode
+    on the trace of tests/test_serving.py scaled to 256-512 tokens, each
+    under the near-tie rule."""
+    import numpy as np
+
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import Request, ServingEngine
+    from repro_torch.train.serve import LMServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    key = "attn_impl" if arch == ARCH else "ssd_impl"
+    new, L = GEN["new"], GEN["cache_len"]
+    cfg, plain, params = full_model(torch, arch, **{key: "torch"})
+    dev = params["embed"].device
+    prompts = torch.as_tensor(served["prompts"], device=dev)
+    kernel = build_model(cfg)
+    lk16, _ = kernel.prefill(params, {"tokens": prompts}, cache_len=L)
+    lt16, _ = plain.prefill(params, {"tokens": prompts}, cache_len=L)
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    bf16_rel = rel(lk16, lt16)
+    # the plain path against itself with every embedding entry moved by one
+    # bf16 spacing: how far one ulp at the input carries through the depth
+    nudged = dict(params, embed=(params["embed"].view(torch.int16) + 1).view(torch.bfloat16))
+    lu16, _ = plain.prefill(nudged, {"tokens": prompts}, cache_len=L)
+    ulp_rel = rel(lu16, lt16)
+    del nudged, lu16
+    plain_toks = LMServer(plain).generate(params, {"tokens": prompts}, new, cache_len=L)
+    agree = float((plain_toks == served["gen_tokens"]).mean())
+    rows_equal = int((plain_toks == served["gen_tokens"]).all(1).sum())
+    log(f"cross-check serve {arch} bf16 (reported, not held): last-position logits through the "
+        f"kernel vs {key}='torch' max|diff|/max|logit| {bf16_rel:.3e}; generate tokens agree in "
+        f"{agree:.1%} of {plain_toks.size}, {rows_equal} of {plain_toks.shape[0]} rows equal; "
+        f"plain vs plain with the embedding one bf16 ulp up {ulp_rel:.3e}")
+    params = {k: v.float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    kernel, plain = build_model(cfg32), build_model(cfg32, **{key: "torch"})
+    lk, ck = kernel.prefill(params, {"tokens": prompts}, cache_len=L)
+    lt, ct = plain.prefill(params, {"tokens": prompts}, cache_len=L)
+    logit_rel = float((lk - lt).abs().max() / lt.abs().max())
+    untouched = ("layers.0.k", "layers.0.v") if arch == ARCH else ("layers.0.conv",)
+    first_equal = all(torch.equal(ck[n][0], ct[n][0]) for n in untouched)
+    leaf_rel = {n: float((ck[n] - ct[n]).abs().max() / ct[n].abs().max().clamp(min=1e-30))
+                for n in ct if n != "pos"}
+    leaf_ok = all(v <= (1e-3 if n.endswith(".h") else 1e-4) for n, v in leaf_rel.items())
+    ok = logit_rel <= 1e-4 and first_equal and leaf_ok and torch.equal(ck["pos"], ct["pos"])
+    log(f"cross-check serve {arch} f32 prefill B={GEN['B']} S={GEN['S']}: last-position logits "
+        f"max|diff|/max|logit| {logit_rel:.3e} (limit 1e-4); layer 0's {', '.join(untouched)} "
+        f"(no kernel before them) equal {first_equal}; each cache leaf's max|diff|/max: "
+        + ", ".join(f"{n} {v:.2e}" for n, v in leaf_rel.items())
+        + f" (limits 1e-4, the SSD state 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{arch} f32 prefill through the kernel disagrees with plain")
+    del ck, ct
+    got = LMServer(kernel).generate(params, {"tokens": prompts}, new, cache_len=L)
+    ref, gaps, tops = greedy_trace(torch, plain, params, prompts, new, L)
+    gen_agree = tokens_agree(f"cross-check serve {arch} f32 generate, kernel vs plain", got, ref,
+                             gaps, tops)
+    # both bf16 paths against the f32 model: a kernel fault would put the
+    # kernel's path further from f32 than the plain one
+    to_f32 = dict(kernel_logit_rel=rel(lk16, lt), plain_logit_rel=rel(lt16, lt),
+                  kernel_token_agreement=float((served["gen_tokens"] == ref).mean()),
+                  plain_token_agreement=float((plain_toks == ref).mean()))
+    log(f"cross-check serve {arch} bf16 against f32 plain (reported, not held): last-position "
+        f"logits max|diff|/max|logit| kernel path {to_f32['kernel_logit_rel']:.3e}, plain path "
+        f"{to_f32['plain_logit_rel']:.3e}; generate tokens agree kernel path "
+        f"{to_f32['kernel_token_agreement']:.1%}, plain path "
+        f"{to_f32['plain_token_agreement']:.1%} of {ref.size}")
+    del lk16, lt16
+    lens = [32 * n for n in (8, 14, 11, 9, 16)]
+    rng = np.random.default_rng(1)
+    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+                    max_new_tokens=7, arrival_t=0.02 * i) for i, n in enumerate(lens)]
+    comps, _ = ServingEngine(LMServer(kernel), params, n_slots=2, cache_len=max(lens) + 8,
+                             decode_dt=0.01).run(reqs)
+    batch_agree = []
+    for c, r in zip(comps, reqs):
+        ref, gaps, tops = greedy_trace(torch, kernel, params,
+                                       torch.as_tensor(r.tokens[None], device=dev), 7,
+                                       max(lens) + 8)
+        batch_agree.append(tokens_agree(
+            f"cross-check serve {arch} f32 continuous batch vs sequential, request {c.rid} "
+            f"({len(r.tokens)} tokens)", c.tokens[None], ref, gaps, tops))
+    del params, kernel, plain
+    torch.cuda.empty_cache()
+    return dict(bf16_logit_rel=bf16_rel, bf16_token_agreement=agree, bf16_rows_equal=rows_equal,
+                bf16_one_ulp_logit_rel=ulp_rel, bf16_vs_f32=to_f32,
+                f32_logit_rel=logit_rel, f32_cache_leaf_rel=leaf_rel, f32_generate=gen_agree,
+                f32_continuous_vs_sequential=batch_agree)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc" / "coded_reduce.cu").is_file():
         print("chip_smoke: run from the root of a checkout (src/repro_torch missing)",
@@ -842,6 +1307,7 @@ def main() -> int:
     n_bit = check_encode_vs_oracle(torch)
     dec_worst = check_decode_vs_plain(torch)
     ssd_check = check_ssd_vs_plain(torch)
+    flash_check = check_flash_vs_plain(torch)
 
     # 4. timing at the main path's shapes
     from repro_torch.configs import CodingConfig
@@ -853,6 +1319,7 @@ def main() -> int:
     wenc = time_encode(torch, n_slots, D_FULL)
     wdec = time_decode(torch, M, D_FULL)
     tssd = time_ssd(torch)
+    tflash = time_flash(torch)
     auto = autotune.wire_kernel_default("cuda")
     probe = next(iter(autotune.PROBE_US.values()))
     log(f"wire_kernel_default on this card: {auto} (probe at f32 (8, 65536): "
@@ -861,15 +1328,16 @@ def main() -> int:
     # 5. the main paths, 6. the f32 cross-checks
     plain_launches = lambda n: {  # noqa: E731
         "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
-        "ssd_scan": 0}
+        "ssd_scan": 0, "flash_attention": 0}
     wire_launches = lambda n: {  # noqa: E731
-        "coded_reduce": n, "coded_encode_int8": n * M, "coded_decode_int8": n, "ssd_scan": 0}
+        "coded_reduce": n, "coded_encode_int8": n * M, "coded_decode_int8": n, "ssd_scan": 0,
+        "flash_attention": 0}
     # a step's forward passes: one per worker slot (m * n_slots gradients)
     # and one more for the step's loss at the decoded weights
     passes = M * n_slots + 1
     mamba_launches = lambda n: {  # noqa: E731
         "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
-        "ssd_scan": n * passes * MAMBA_LAYERS}
+        "ssd_scan": n * passes * MAMBA_LAYERS, "flash_attention": 0}
     run = main_path(torch, "spmd", SLICE_ARGS, plain_launches)
     wire_run = main_path(torch, "spmd --compress", WIRE_ARGS, wire_launches,
                          on_step=check_err_after_step(torch))
@@ -881,7 +1349,14 @@ def main() -> int:
     mxc = {**cross_check(torch, MAMBA, seq_len=MAMBA_SEQ, part_mb=1, wire=False),
            **mamba_kernel_check(torch)}
 
-    # 7. the kernels line, then the card
+    # 7. serving at full width, 8. its f32 cross-checks
+    serve = {}
+    for arch in (ARCH, MAMBA):
+        serve[arch] = serve_path(torch, arch)
+        serve[arch]["cross_check"] = serve_cross_check(torch, arch, serve[arch])
+        del serve[arch]["gen_tokens"], serve[arch]["prompts"]
+
+    # 9. the kernels line, then the card
     kernels = [{
         "name": "coded_reduce",
         "route": "cuda",
@@ -934,7 +1409,27 @@ def main() -> int:
         "shape": "x (2, 512, 32, 64) f32, dA f32, B/C (2, 512, 1, 128) bf16 -> y f32, h "
                  "(2, 32, 64, 128) f32, chunk 256 (kernel tile 64)",
         "launches_per_step": mamba_run["launches"]["ssd_scan"] / mamba_run["steps"],
+        "launches_serving": {k: serve[MAMBA][k]["launches"]["ssd_scan"]
+                             for k in ("generate", "engine")},
         "checks": ssd_check,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:93",
+        "launches": sum(serve[ARCH][k]["launches"]["flash_attention"]
+                        for k in ("generate", "engine")),
+        "launches_serving": {k: serve[ARCH][k]["launches"]["flash_attention"]
+                             for k in ("generate", "engine")},
+        "max_abs_err": max(tflash["max_abs_err"], flash_check["worst_small"],
+                           *flash_check["full"].values()),
+        "ms": tflash["ms"], "plain_ms": tflash["plain_ms"], "bound_ms": tflash["bound_ms"],
+        "bound_by": tflash["bound_by"], "library_ms": tflash["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True)",
+        "shape": f"q ({tflash['B']}, {tflash['S']}, {tflash['H']}, {tflash['hd']}) bf16, k/v "
+                 f"({tflash['B']}, {tflash['S']}, {tflash['K']}, {tflash['hd']}) bf16, causal",
+        "checks": flash_check,
     }]
     log(f"summary: spmd step {run['step_s']:.4f} s (median), peak {run['peak_gib']:.2f} GiB, "
         f"losses {run['losses']}; spmd --compress step {wire_run['step_s']:.4f} s, "
@@ -943,6 +1438,8 @@ def main() -> int:
     log(f"summary: mamba2 spmd step {mamba_run['step_s']:.4f} s (median), peak "
         f"{mamba_run['peak_gib']:.2f} GiB, losses {mamba_run['losses']}, launches "
         f"{mamba_run['launches']}; cross-check {mxc}; profile {mamba_run['breakdown']}")
+    for arch in (ARCH, MAMBA):
+        log(f"summary: serve {arch} {json.dumps(serve[arch], default=str)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels import wire
 from repro_torch.kernels.coded_reduce import coded_reduce as _coded_reduce_kernel
 from repro_torch.kernels.coded_reduce import coded_reduce_torch
+from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_kernel
+from repro_torch.kernels.flash_attention import flash_attention_torch
 from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_torch
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan_kernel
 
@@ -53,6 +55,17 @@ def coded_decode_int8(q: torch.Tensor, ws: torch.Tensor, impl: str | None = None
     if _resolve(impl, q) == "torch":
         return wire.coded_decode_int8_torch(q, ws)
     return wire.coded_decode_int8(q, ws)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: int | None = None, impl: str | None = None,
+) -> torch.Tensor:
+    """Forward-only online-softmax attention: q (B,S,H,hd), k / v
+    (B,S,K,hd) -> (B,S,H,hd) in q's dtype.  No autograd on the kernel."""
+    if _resolve(impl, q) == "torch":
+        return flash_attention_torch(q, k, v, causal=causal, window=window)
+    return _flash_attention_kernel(q, k, v, causal=causal, window=window)
 
 
 def ssd_scan(

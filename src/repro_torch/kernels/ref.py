@@ -3,9 +3,10 @@
 cannot hide in a shared implementation.  The int8 wire format is defined
 here, as in the JAX package: :func:`quantize_int8` / :func:`dequantize`
 in torch, and :func:`encode_int8_oracle_np`, the bit-level oracle of the
-fused encode, in strict per-operation numpy.  :func:`ssd_ref` is the SSD
-scan's O(S) sequential recurrence, deliberately not the chunked algorithm
-of the kernel and of its plain version."""
+fused encode, in strict per-operation numpy.  :func:`attention_ref` is
+unfused softmax attention (the flash kernel's oracle), and :func:`ssd_ref`
+the SSD scan's O(S) sequential recurrence, deliberately not the chunked
+algorithm of the kernel and of its plain version."""
 
 from __future__ import annotations
 
@@ -20,6 +21,30 @@ _INV_127 = np.float32(1.0 / 127.0)
 def coded_reduce_ref(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """g: (P, D), w: (P,) -> (D,) in ``g.dtype``, summed in f32."""
     return torch.einsum("p,pd->d", w.float(), g.float()).to(g.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    *, causal: bool = True, window: int | None = None,
+) -> torch.Tensor:
+    """Unfused softmax attention with GQA.  q: (B,S,H,hd), k/v: (B,S,K,hd)
+    -> (B,S,H,hd) in q's dtype, computed in f32."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qh = q.reshape(B, S, K, G, hd) * (hd**-0.5)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qh.float(), k.float())
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full((), -1e30, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
 
 
 def ssd_ref(

@@ -15,6 +15,15 @@ Ported: dense (attention + SiLU MLP) and ssm (mamba2 mixer, no MLP).  The
 MoE, hybrid, VLM and audio families raise ``NotImplementedError`` (ROADMAP
 Queue 1).  Activation checkpointing (``remat="full"``) is not applied (ROADMAP
 Queue 1): at the launcher's sequence lengths the activations fit.
+
+Serving: :meth:`LM.prefill` (the flash-attention kernel or the SSD kernel
+forward-only on the card), :meth:`LM.decode_step` and the slot cache
+(:meth:`LM.empty_slot_cache`, :meth:`LM.cache_insert_slot`,
+:meth:`LM.cache_evict_slot`).  A cache is a flat dict like the parameters:
+the JAX cache tree's dotted keys (``"layers.0.k"``, ``"layers.0.h"``,
+``"pos"``), each layer leaf stacked ``(n_rep, B, ...)``; its converter is
+:func:`cache_from_numpy` / :func:`cache_to_numpy`.  They run under
+``torch.inference_mode()`` and update caches in place.
 """
 
 from __future__ import annotations
@@ -27,11 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attention_forward
+from repro_torch.models.attention import attention_decode, attention_forward
 from repro_torch.models.layers import dense_init, embed_init, mlp, rms_norm
-from repro_torch.models.ssm import init_mamba, mamba_forward
+from repro_torch.models.ssm import init_mamba, mamba_decode, mamba_forward
 
 Params = dict[str, torch.Tensor]
+Cache = dict[str, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _PORTED_FAMILIES = ("dense", "ssm")
@@ -136,9 +146,14 @@ class LM:
 
     ``ssd_impl`` picks the SSD scan of the mamba layers (``kernels.ops``):
     None for the kernel on a CUDA tensor and the plain version on a CPU
-    one, ``"torch"`` for the plain version anywhere."""
+    one, ``"torch"`` for the plain version anywhere.  ``attn_impl`` picks
+    the attention of :meth:`prefill` the same way (the flash kernel or its
+    plain version); :meth:`forward`, the training path, always runs the
+    model's own attention (the kernel has no backward), and decode runs
+    plain attention over the cache."""
 
-    def __init__(self, cfg: ModelConfig, ssd_impl: str | None = None):
+    def __init__(self, cfg: ModelConfig, ssd_impl: str | None = None,
+                 attn_impl: str | None = None):
         if cfg.family not in _PORTED_FAMILIES or cfg.frontend is not None:
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} is not ported yet "
@@ -154,6 +169,7 @@ class LM:
             raise NotImplementedError(f"{cfg.name}: only SiLU MLPs are ported")
         self.dtype = _DTYPES[cfg.dtype]
         self.ssd_impl = ssd_impl
+        self.attn_impl = attn_impl
 
     # -- init ----------------------------------------------------------------
 
@@ -213,8 +229,13 @@ class LM:
 
     def _apply_block(
         self, spec: LayerSpec, bp: dict[str, torch.Tensor], x: torch.Tensor,
-        positions: torch.Tensor,
-    ) -> torch.Tensor:
+        positions: torch.Tensor, mode: str = "train", cache: dict | None = None,
+        pos: torch.Tensor | None = None, cache_len: int | None = None,
+    ) -> tuple[torch.Tensor, dict | None]:
+        """One layer in ``mode`` "train", "prefill" (also returns the
+        layer's decode cache, padded to ``cache_len``) or "decode" (one
+        token at ``pos`` against ``cache``).  Returns (x, the layer's cache
+        or None)."""
         cfg = self.cfg
 
         def sub(prefix):
@@ -222,21 +243,44 @@ class LM:
 
         h = rms_norm(x, bp["mixer_norm.scale"], cfg.norm_eps)
         if spec.mixer == "attn":
-            x = x + attention_forward(
-                sub("attn."), h, positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                head_dim=cfg.resolved_head_dim, rotary_dim=cfg.rotary_dim,
-                rope_theta=cfg.rope_theta, causal=cfg.causal,
-            )
+            kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                      rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta)
+            if mode == "decode":
+                out, new_cache = attention_decode(sub("attn."), h, cache, pos, **kw)
+            else:
+                prefill = mode == "prefill"
+                out, new_cache = attention_forward(
+                    sub("attn."), h, positions, causal=cfg.causal, return_cache=prefill,
+                    cache_len=cache_len, flash=prefill, impl=self.attn_impl, **kw,
+                )
         else:
-            x = x + mamba_forward(
-                sub("mamba."), h, d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads,
-                d_state=cfg.ssm_state, n_groups=cfg.ssm_groups, chunk=cfg.ssm_chunk,
-                impl=self.ssd_impl,
-            )
+            kw = dict(d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+                      n_groups=cfg.ssm_groups)
+            if mode == "decode":
+                out, new_cache = mamba_decode(sub("mamba."), h, cache, **kw)
+            else:
+                out, new_cache = mamba_forward(
+                    sub("mamba."), h, chunk=cfg.ssm_chunk, impl=self.ssd_impl,
+                    return_cache=(mode == "prefill"), **kw,
+                )
+        x = x + out
         if spec.mlp == "dense":
             h = rms_norm(x, bp["mlp_norm.scale"], cfg.norm_eps)
             x = x + mlp(sub("mlp."), h)
-        return x
+        return x, new_cache
+
+    def _layers(self, params: Params) -> list[dict[str, torch.Tensor]]:
+        """Per layer of the period, its stacked leaves under their names
+        below ``blocks.j.``."""
+        out = []
+        for j in range(self.period):
+            prefix = f"blocks.{j}."
+            out.append({n[len(prefix):]: v for n, v in params.items() if n.startswith(prefix)})
+        return out
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        head = params["lm_head"] if "lm_head" in params else params["embed"].t()
+        return x @ head
 
     def forward(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Logits (B, S, V) in the parameter dtype."""
@@ -245,21 +289,14 @@ class LM:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         # one unbind per stacked leaf: its backward stacks the per-layer
         # grads once, instead of a full-size scatter per layer
-        blocks = []
-        for j in range(self.period):
-            prefix = f"blocks.{j}."
-            blocks.append({
-                name[len(prefix):]: leaf.unbind(0)
-                for name, leaf in params.items() if name.startswith(prefix)
-            })
+        blocks = [{k: v.unbind(0) for k, v in layer.items()} for layer in self._layers(params)]
         for r in range(self.n_rep):
             for j, layers in enumerate(blocks):
-                x = self._apply_block(
+                x, _ = self._apply_block(
                     self.plan[j], {k: v[r] for k, v in layers.items()}, x, positions
                 )
         x = rms_norm(x, params["final_norm.scale"], cfg.norm_eps)
-        head = params["lm_head"] if "lm_head" in params else params["embed"].t()
-        return x @ head
+        return self._logits(params, x)
 
     def seq_losses(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-sequence mean next-token CE, shape (B,)."""
@@ -278,5 +315,136 @@ class LM:
         return (self.seq_losses(params, batch) * batch["weight"]).sum()
 
 
-def build_model(cfg: ModelConfig, ssd_impl: str | None = None) -> LM:
-    return LM(cfg, ssd_impl=ssd_impl)
+    # -- serving: prefill, decode and the slot cache ---------------------------
+
+    @torch.inference_mode()
+    def prefill(
+        self, params: Params, batch: dict[str, torch.Tensor], cache_len: int
+    ) -> tuple[torch.Tensor, Cache]:
+        """Returns (last-position logits (B, V), cache).  The cache holds
+        each layer's leaves stacked ``(n_rep, B, ...)`` under the JAX cache
+        tree's dotted keys (``"layers.j.k"``, ``"layers.j.h"``) and
+        ``"pos"``, the prompt length as a 0-d int32 tensor."""
+        cfg = self.cfg
+        x = F.embedding(batch["tokens"].long(), params["embed"])
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        per_layer: list[list[dict]] = [[] for _ in range(self.period)]
+        layers = self._layers(params)
+        for r in range(self.n_rep):
+            for j, layer in enumerate(layers):
+                x, c = self._apply_block(
+                    self.plan[j], {k: v[r] for k, v in layer.items()}, x, positions,
+                    mode="prefill", cache_len=cache_len,
+                )
+                per_layer[j].append(c)
+        x = rms_norm(x, params["final_norm.scale"], cfg.norm_eps)
+        logits = self._logits(params, x[:, -1])
+        cache: Cache = {}
+        for j, caches in enumerate(per_layer):
+            for name in sorted(caches[0]):
+                cache[f"layers.{j}.{name}"] = torch.stack([c[name] for c in caches])
+        cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+        return logits, cache
+
+    @torch.inference_mode()
+    def decode_step(
+        self, params: Params, tokens: torch.Tensor, cache: Cache
+    ) -> tuple[torch.Tensor, Cache]:
+        """One token.  tokens: (B, 1) int.  Returns (logits (B, V), cache).
+
+        ``cache["pos"]`` may be a 0-d tensor (all rows at one position) or
+        (B,) (slot-indexed continuous batching: each row at its own
+        position).  The layer leaves are updated IN PLACE and returned in a
+        new dict with ``pos + 1``, the values the JAX function returns."""
+        cfg = self.cfg
+        x = F.embedding(tokens.long(), params["embed"])
+        pos = cache["pos"]
+        layers = self._layers(params)
+        for r in range(self.n_rep):
+            for j, layer in enumerate(layers):
+                prefix = f"layers.{j}."
+                stacked = {n[len(prefix):]: v for n, v in cache.items() if n.startswith(prefix)}
+                x, new = self._apply_block(
+                    self.plan[j], {k: v[r] for k, v in layer.items()}, x, None,
+                    mode="decode", cache={n: v[r] for n, v in stacked.items()}, pos=pos,
+                )
+                # attention wrote its rows of the stack in place; the mamba
+                # state and conv inputs come back new and are copied in
+                for n, v in new.items():
+                    if v.data_ptr() != stacked[n][r].data_ptr():
+                        stacked[n][r].copy_(v)
+        x = rms_norm(x, params["final_norm.scale"], cfg.norm_eps)
+        return self._logits(params, x[:, 0]), {**cache, "pos": pos + 1}
+
+    @torch.inference_mode()
+    def empty_slot_cache(self, params: Params, n_slots: int, cache_len: int) -> Cache:
+        """Zeroed decode cache for ``n_slots`` independent requests with a
+        per-slot ``pos`` vector, on the parameters' device.  The shapes are
+        built here (the KV cache of an attention layer, the SSM state and
+        the conv inputs of a mamba layer), not traced from a prefill."""
+        cfg, n = self.cfg, self.n_rep
+        if cfg.encoder_only:
+            raise ValueError(f"{cfg.name} is encoder-only; no decode cache")
+        dev = params["embed"].device
+
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros((n, n_slots, *shape), dtype=dtype, device=dev)
+
+        cache: Cache = {}
+        for j, spec in enumerate(self.plan[: self.period]):
+            if spec.mixer == "attn":
+                for name in ("k", "v"):
+                    cache[f"layers.{j}.{name}"] = zeros(cache_len, cfg.n_kv_heads,
+                                                        cfg.resolved_head_dim)
+            else:
+                conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+                P = cfg.ssm_d_inner // cfg.ssm_heads
+                cache[f"layers.{j}.conv"] = zeros(cfg.conv_kernel - 1, conv_ch)
+                cache[f"layers.{j}.h"] = zeros(cfg.ssm_heads, P, cfg.ssm_state,
+                                               dtype=torch.float32)
+        cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        return cache
+
+    @staticmethod
+    @torch.inference_mode()
+    def cache_insert_slot(batch_cache: Cache, req_cache: Cache, slot: int) -> Cache:
+        """Write a single-request prefill cache (batch dim 1) into ``slot``
+        of a slot cache, in place; returns the slot cache.  Layer leaves are
+        stacked (n_rep, B, ...), so the batch dim is axis 1."""
+        for name, big in batch_cache.items():
+            if name != "pos":
+                big[:, slot].copy_(req_cache[name][:, 0])
+        batch_cache["pos"][slot] = req_cache["pos"]
+        return batch_cache
+
+    @staticmethod
+    @torch.inference_mode()
+    def cache_evict_slot(batch_cache: Cache, slot: int) -> Cache:
+        """Zero one slot (finished or cancelled request), in place; returns
+        the slot cache.  Decode never reads an inactive slot's values into
+        an active one, but a zero slot keeps stale state from leaking NaN or
+        Inf into later occupants."""
+        for name, big in batch_cache.items():
+            if name != "pos":
+                big[:, slot].zero_()
+        batch_cache["pos"][slot] = 0
+        return batch_cache
+
+
+def cache_from_numpy(tree, device: torch.device | str = "cuda") -> Cache:
+    """A JAX decode cache (``{"layers": ..., "pos": ...}``, numpy leaves) ->
+    the port's cache on ``device``, key for key."""
+    return params_from_numpy(tree, device)
+
+
+def cache_to_numpy(cache: Cache):
+    """The port's cache -> a tree shaped like the JAX cache, numpy leaves
+    (bf16 leaves come back as f32 arrays)."""
+    return params_to_numpy(cache)
+
+
+def build_model(
+    cfg: ModelConfig, ssd_impl: str | None = None, attn_impl: str | None = None
+) -> LM:
+    return LM(cfg, ssd_impl=ssd_impl, attn_impl=attn_impl)

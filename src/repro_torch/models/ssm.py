@@ -12,8 +12,13 @@ algorithm for a CPU tensor.  The chunked math lives once, in
 that code.  The JAX module's sequential oracle ``ssd_sequential`` is
 ``kernels.ref.ssd_ref`` here, beside the other oracles.  ``softplus`` is
 ``jax.nn.softplus``'s own definition, ``logaddexp(x, 0)`` (``F.softplus``
-returns x itself above 20, which differs from it by under 2e-9).  Decode (``mamba_decode``) and its cache
-are not ported yet: they come with serving.
+returns x itself above 20, which differs from it by under 2e-9).
+
+Serving: :func:`mamba_forward` with ``return_cache`` also returns the
+decode cache ``{"h": the final SSD state (B,H,P,N) f32, "conv": the last
+k-1 conv inputs (B,k-1,C) in the activation dtype}``; in prefill the SSD
+kernel runs forward-only and its final state is that ``h``.
+:func:`mamba_decode` advances one token at O(1) state in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from repro_torch.kernels.ssd_scan import _segsum
 from repro_torch.kernels.ssd_scan import ssd_scan_torch as ssd_chunked
 from repro_torch.models.layers import dense_init, rms_norm
 
-__all__ = ["init_mamba", "mamba_forward", "ssd_chunked", "_segsum", "_causal_conv"]
+__all__ = ["init_mamba", "mamba_decode", "mamba_forward", "ssd_chunked", "_segsum", "_causal_conv"]
 
 Params = dict[str, torch.Tensor]
 
@@ -106,15 +111,18 @@ def mamba_forward(
     n_groups: int = 1,
     chunk: int = 64,
     impl: str | None = None,
-) -> torch.Tensor:
-    """Train forward.  x: (B, S, d_model) -> (B, S, d_model).  ``impl``
-    picks the SSD scan (``kernels.ops``): None by the tensors' device."""
+    return_cache: bool = False,
+) -> tuple[torch.Tensor, Params | None]:
+    """Train / prefill.  x: (B, S, d_model) -> ``(out (B, S, d_model),
+    cache)``, the cache ``{"h", "conv"}`` when ``return_cache``, else None.
+    ``impl`` picks the SSD scan (``kernels.ops``): None by the tensors'
+    device."""
     B, S, _ = x.shape
     P = d_inner // n_heads
     GN = n_groups * d_state
     zxbcdt = x @ params["in_proj"]
     z, xBC, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * GN, n_heads], dim=-1)
-    xBC, _ = _causal_conv(xBC, params["conv_w"], params["conv_b"], None)
+    xBC, conv_state = _causal_conv(xBC, params["conv_w"], params["conv_b"], None)
     xBC = F.silu(xBC)
     xs, Bm, Cm = torch.split(xBC, [d_inner, GN, GN], dim=-1)
     xs = xs.reshape(B, S, n_heads, P)
@@ -126,7 +134,7 @@ def mamba_forward(
     pad = (-S) % chunk  # zero-pad to a chunk multiple: x=0 adds nothing to the
     if pad:  # state and dA=0 gives decay exp(0)=1, so padding is exact
         xdt, dA, Bm, Cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xdt, dA, Bm, Cm))
-    y, _ = ops.ssd_scan(
+    y, h = ops.ssd_scan(
         xdt.contiguous(), dA.contiguous(), Bm.contiguous(), Cm.contiguous(), chunk=chunk, impl=impl
     )
     y = y[:, :S]
@@ -134,4 +142,48 @@ def mamba_forward(
     y = y.reshape(B, S, d_inner).to(x.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = rms_norm(y * F.silu(z), params["norm"], 1e-5)
-    return y @ params["out_proj"]
+    out = y @ params["out_proj"]
+    cache = None
+    if return_cache:
+        cache = {"h": h, "conv": conv_state}  # f32 state, conv inputs in x's dtype
+    return out, cache
+
+
+def mamba_decode(
+    params: Params,
+    x: torch.Tensor,
+    cache: Params,
+    *,
+    d_inner: int,
+    n_heads: int,
+    d_state: int,
+    n_groups: int = 1,
+) -> tuple[torch.Tensor, Params]:
+    """One-token decode.  x: (B, 1, d_model); cache ``{"h", "conv"}``.
+    Returns ``(out (B, 1, d_model), new cache)``: the state advanced by
+    one step of the recurrence, h' = exp(dt*A) h + (x dt) (x) B, and the
+    readout y = C . h' + D x."""
+    B = x.shape[0]
+    P = d_inner // n_heads
+    GN = n_groups * d_state
+    rep = n_heads // n_groups
+    f32 = torch.float32
+    zxbcdt = x @ params["in_proj"]
+    z, xBC, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * GN, n_heads], dim=-1)
+    xBC, conv_state = _causal_conv(xBC, params["conv_w"], params["conv_b"], cache["conv"])
+    xBC = F.silu(xBC)
+    xs, Bm, Cm = torch.split(xBC, [d_inner, GN, GN], dim=-1)
+    xs = xs.reshape(B, n_heads, P).to(f32)  # S=1 squeezed
+    Bm = Bm.reshape(B, n_groups, d_state).repeat_interleave(rep, dim=1)
+    Cm = Cm.reshape(B, n_groups, d_state).repeat_interleave(rep, dim=1)
+    dt = _softplus(dt.to(f32)[:, 0] + params["dt_bias"])  # (B,H)
+    A = -torch.exp(params["A_log"])
+    a = torch.exp(dt * A)  # (B,H)
+    h = cache["h"] * a[..., None, None] + torch.einsum(
+        "bhp,bhn->bhpn", xs * dt[..., None], Bm.to(f32)
+    )
+    y = torch.einsum("bhpn,bhn->bhp", h, Cm.to(f32))
+    y = y + params["D"][None, :, None] * xs
+    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], 1e-5)
+    return y @ params["out_proj"], {"h": h, "conv": conv_state}

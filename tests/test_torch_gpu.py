@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions and the
 wire format's bit oracle, on the card: coded_reduce, the int8 wire encode
-and decode, and the SSD scan (with its autograd Function).
+and decode, the SSD scan (with its autograd Function) and flash attention;
+and a reduced serving run whose prefill launches the kernels.
 
 Marked ``gpu``: they skip with a reason where no CUDA card is present.  On
 the H100 run them with ``python -m pytest -m gpu tests/test_torch_gpu.py``
@@ -265,3 +266,113 @@ def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda_device):
         ssd_scan(x[..., :6].contiguous(), dA, Bm, Cm, 32)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dA, Bm, Cm, 32)
+
+
+# -- flash attention ---------------------------------------------------------
+
+# (atol, rtol) of the JAX sweep's shapes: tests/test_kernels.py:123
+_FLASH_TOL = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (3e-2, 3e-2)}
+# (atol, rtol) beyond the JAX sweep's shapes: both sides compute in f32 and
+# round once, so in bf16 they part by at most one spacing of the value
+# (2^-7 of it); in f32 by a few spacings of summation order.
+_FLASH_TOL_TIGHT = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-4, 2.0**-7)}
+
+
+def _qkv(B, S, H, K, hd, dtype, dev, seed):
+    r = np.random.default_rng(seed)
+    return [torch.from_numpy(r.normal(size=(B, S, n, hd)).astype(np.float32)).to(dtype).to(dev)
+            for n in (H, K, K)]
+
+
+def _flash_vs_plain(q, k, v, causal, window, tol=_FLASH_TOL):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_torch
+
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    expect = flash_attention_torch(q, k, v, causal=causal, window=window)
+    atol, rtol = tol[q.dtype]
+    torch.testing.assert_close(out.float(), expect.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,K,hd", [(64, 4, 2, 32), (128, 6, 3, 32), (128, 8, 8, 64),
+                                      (64, 5, 1, 16)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 32),
+                                           (False, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain(cuda_device, S, H, K, hd, causal, window, dtype):
+    """The JAX sweep's shapes, causal or not, window None or 32, at the JAX
+    test's tolerances."""
+    _flash_vs_plain(*_qkv(2, S, H, K, hd, dtype, cuda_device, S + H), causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 100, 1000, 2047])
+@pytest.mark.parametrize("window", [None, 1, 5000])
+def test_cuda_flash_attention_ragged_and_window_edges(cuda_device, S, window):
+    """Ragged S at smollm-360m's heads (H=15, K=5, hd=64), bf16: a prompt
+    shorter than one tile, ragged last tiles, a window of 1 (only the
+    diagonal is live: out == v of the row's kv head) and one wider than S.
+    NaN-free, within one bf16 spacing of the plain version."""
+    q, k, v = _qkv(1, S, 15, 5, 64, torch.bfloat16, cuda_device, S)
+    _flash_vs_plain(q, k, v, True, window, _FLASH_TOL_TIGHT)
+    if window == 1:
+        from repro_torch.kernels.flash_attention import flash_attention
+
+        out = flash_attention(q, k, v, causal=True, window=1)
+        torch.testing.assert_close(out, v.repeat_interleave(3, dim=2), atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_flash_attention_head_dim_128(cuda_device, dtype):
+    _flash_vs_plain(*_qkv(2, 300, 8, 2, 128, dtype, cuda_device, 128), True, None,
+                    _FLASH_TOL_TIGHT)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = _qkv(1, 64, 4, 2, 32, torch.float32, cuda_device, 0)
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention(*_qkv(1, 64, 4, 2, 48, torch.float32, cuda_device, 0))
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="share a dtype"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-370m"])
+def test_cuda_serving_engine_launches_the_prefill_kernel(cuda_device, arch):
+    """A reduced ServingEngine run on the card: the prefill kernel launches
+    once per layer and prefill call, never in decode, and every request
+    completes with tokens in [0, vocab)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import Request, ServingEngine
+    from repro_torch.train.serve import LMServer
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    counter = flash_attention if arch == "smollm-360m" else ssd_scan
+    server = LMServer(model)
+    r = np.random.default_rng(0)
+    reqs = [Request(rid=i, tokens=r.integers(0, cfg.vocab, (int(n),)), max_new_tokens=5,
+                    arrival_t=0.01 * i) for i, n in enumerate((9, 30, 17, 64))]
+    before = counter.launches
+    comps, _ = ServingEngine(server, params, n_slots=2, cache_len=80, decode_dt=0.01).run(reqs)
+    torch.cuda.synchronize()
+    assert counter.launches - before == cfg.n_layers * len(reqs)
+    assert [len(c.tokens) for c in comps] == [5] * len(reqs)
+    assert all(((c.tokens >= 0) & (c.tokens < cfg.vocab)).all() for c in comps)

@@ -145,8 +145,8 @@ def test_mamba_forward_matches_jax(S):
     x = np.random.default_rng(S).normal(size=(2, S, cfg.d_model)).astype(np.float32)
     jout, _ = jssm.mamba_forward(jp, jnp.asarray(x), chunk=cfg.ssm_chunk, **kw)
     tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
-    tout = ssm.mamba_forward(tp, torch.from_numpy(x), chunk=cfg.ssm_chunk, **kw)
-    assert tout.shape == (2, S, cfg.d_model)
+    tout, cache = ssm.mamba_forward(tp, torch.from_numpy(x), chunk=cfg.ssm_chunk, **kw)
+    assert tout.shape == (2, S, cfg.d_model) and cache is None
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
 
 

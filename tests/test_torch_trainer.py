@@ -9,8 +9,8 @@ its default ``fused`` backend (its spmd backend needs m devices).  Also:
 the port's launcher runs to its JSON summary on the CPU, uncompressed, on
 the int8 wire (``--compress --wire-kernel on``) and on mamba2; a non-finite compressed
 decode zeroes the error feedback; and neither the port's modules,
-``chip_smoke.py`` nor its main path, compressed or not, load ``jax`` or
-``repro``.
+``chip_smoke.py``, its main path, compressed or not, nor its serving path
+(``LMServer.generate``, ``ServingEngine.run``) load ``jax`` or ``repro``.
 """
 
 import json
@@ -237,6 +237,18 @@ def test_main_path_never_loads_jax_or_repro():
         "main(args + ['--compress', '--wire-kernel', 'on'])\n"
         "main(args + ['--compress', '--wire-kernel', 'auto'])\n"
         "main(['--arch', 'mamba2-370m'] + args[2:])\n"
+        "import numpy as np, torch\n"
+        "import repro_torch.serve, repro_torch.train.serve\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.lm import build_model\n"
+        "for arch in ('smollm-360m', 'mamba2-370m'):\n"
+        "    model = build_model(get_config(arch).reduced())\n"
+        "    params = model.init(torch.Generator().manual_seed(0), 'cpu')\n"
+        "    server = repro_torch.train.serve.LMServer(model)\n"
+        "    server.generate(params, {'tokens': np.ones((2, 5), np.int32)}, 3)\n"
+        "    eng = repro_torch.serve.ServingEngine(server, params, n_slots=2, cache_len=16)\n"
+        "    eng.run([repro_torch.serve.Request(rid=i, tokens=np.ones(4 + i, np.int32),\n"
+        "                                       max_new_tokens=3) for i in range(3)])\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
