@@ -9,7 +9,9 @@ never imports ``jax`` or the JAX package):
   1. the card: ``nvidia-smi`` name and power limit, and CUDA's version;
   2. the build of every kernel source in the checkout (one ``nvcc`` per
      ``csrc/*.cu``, all started together, sm_90a), with ptxas' register and
-     spill report for each entry;
+     spill report for each entry, and the count of HGMMA (wgmma)
+     instructions in flash attention's library where the toolkit has
+     ``cuobjdump`` (0 fails);
   3. each kernel against its plain PyTorch version on the card, over
      ragged shapes and every dtype it takes, with the tolerance stated; the
      fused int8 encode BIT-equal to the wire format's numpy oracle (whose
@@ -18,12 +20,16 @@ never imports ``jax`` or the JAX package):
      scan's y and h over the JAX test's shapes (G > 1, f32 and bf16 B/C)
      and the full mamba2 layer with the model's dA (finite); flash attention
      over the JAX test's shapes (causal or not, window None or 32, f32 and
-     bf16), ragged S up to 2047 with windows 1 and > S, hd = 128, and the
-     full prefill shapes;
+     bf16), ragged S up to 2047 with windows 1 and > S, hd = 128, the
+     tensor-core kernel's stress cases (peaked softmax, zero-mean v, GQA
+     groups of 1, 3 and 5 with windows across tile edges, every head size
+     at a ragged S), and the full prefill shapes;
   4. each kernel's time at the main path's shapes (CUDA events, median)
      beside its bound, the plain version's time, the unfused composition's
      time for the wire kernels, and one PyTorch library call computing the
      same function where there is one (timed here, never used by the port);
+     flash attention at the generate prefill's shape and the engine's
+     longest and shortest prompts, kernel and library call in turns;
   5. the main path: ``repro_torch.launch.train`` on smollm-360m at full
      width, spmd backend, heter_aware, s=1, m=4, one faulted worker per
      step, 4 steps, checking losses, the decode metrics and that
@@ -101,7 +107,10 @@ BF16_FLOPS = 989.4e12
 # serving: smollm-360m's attention heads, and the full-width traffic
 SMOLLM_HEADS = dict(H=15, K=5, hd=64)
 SMOLLM_LAYERS = 32
-FLASH_TIMED = dict(B=4, S=1024)  # the generate path's prefill shape
+# flash_attention's timed shapes (B, S): the generate path's prefill (the
+# kernels line's ms), and the engine's longest and shortest prompts
+FLASH_TIMED = ((4, 1024), (1, 2048), (1, 128))
+FLASH_BATCH = 20  # launches a timed reading of flash attention spans
 GEN = dict(B=4, S=1024, new=64, cache_len=1088)
 TRACE = dict(n=16, prompt=(128, 2048), new=(32, 128), gap_s=0.3, n_slots=8, cache_len=2176,
              m=8, s=2, delay=5.0)
@@ -131,8 +140,11 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+def time_cuda(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
+    """Median milliseconds of ``fn`` on the current stream (CUDA events).
+    With ``batch`` > 1 each reading spans that many calls back to back and
+    is divided by it: the device's time per call once the host runs ahead,
+    where one call alone would also count the host's time to launch it."""
     import torch
 
     for _ in range(warmup):
@@ -141,10 +153,11 @@ def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -153,6 +166,27 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, 
     operations over ``rate`` (default the f32 rate), whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def count_hgmma(lib: str) -> int | None:
+    """Phase 2: the HGMMA (wgmma) instructions in a built library's SASS,
+    where the toolkit has ``cuobjdump``; None where it has not.  Fails on 0:
+    the bf16 flash kernel must run on the tensor cores."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(tool).is_file():
+        log("cuobjdump not found: HGMMA count not taken")
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"cuobjdump -sass {Path(lib).name}: {n} HGMMA instructions")
+    if n == 0:
+        raise AssertionError("flash_attention's library has no HGMMA instruction")
+    return n
 
 
 def check_kernel_vs_plain(torch, cr) -> float:
@@ -858,30 +892,45 @@ def flash_inputs(torch, B, S, H, K, hd, dtype, seed):
 def check_flash_vs_plain(torch) -> dict:
     """Phase 3, flash attention: the kernel against its plain version on
     the card.  The JAX test's shapes (causal or not, window None or 32, f32
-    and bf16) at its tolerances, 2e-3 at f32 and 3e-2 at bf16.  Then ragged
-    S at smollm-360m's heads with windows 1 and wider than S, hd = 128, and
-    the full prefill shapes (bf16, causal), finite, at FLASH_TOL: both sides
-    compute in f32 and round once to the output dtype, so they may part by
-    one bf16 spacing of the value (at most 2^-7 of it) and no more."""
+    and bf16) at its tolerances, 2e-3 at f32 and 3e-2 at bf16.  Then, at
+    FLASH_TOL, ragged S at smollm-360m's heads with windows 1 and wider than
+    S, hd = 128, the stress cases of the tensor-core kernel (a peaked
+    softmax, q x 8, which drives the m rescaling; zero-mean v, outputs near
+    0 where atol decides; GQA groups G in {1, 3, 5} with windows across the
+    64-row tile edges; every head size at a ragged S), and the full prefill
+    shapes (bf16, causal), finite: both sides compute in f32 and round once
+    to the output dtype, so they may part by one bf16 spacing of the value
+    (at most 2^-7 of it) and no more."""
     from repro_torch.kernels import flash_attention as fa
 
     sweep_tol = {torch.float32: (2e-3, 2e-3), torch.bfloat16: (3e-2, 3e-2)}
+    bf16, tight = torch.bfloat16, FLASH_TOL["bf16"]
     h = SMOLLM_HEADS
-    cases = []
+    cases = []  # (B, S, H, K, hd, dtype, causal, window, tol, inputs)
     for S_, H, K, hd in [(64, 4, 2, 32), (128, 6, 3, 32), (128, 8, 8, 64), (64, 5, 1, 16)]:
         for causal in (True, False):
             for window in (None, 32):
-                for dt in (torch.float32, torch.bfloat16):
-                    cases.append((2, S_, H, K, hd, dt, causal, window, sweep_tol[dt]))
+                for dt in (torch.float32, bf16):
+                    cases.append((2, S_, H, K, hd, dt, causal, window, sweep_tol[dt], None))
     for S_ in (1, 100, 1000, 2047):
         for window in (None, 1, S_ + 1):
-            cases.append((1, S_, h["H"], h["K"], h["hd"], torch.bfloat16, True, window,
-                          FLASH_TOL["bf16"]))
-    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        cases.append((2, 300, 8, 2, 128, dt, True, None, FLASH_TOL[name]))
+            cases.append((1, S_, h["H"], h["K"], h["hd"], bf16, True, window, tight, None))
+    for name, dt in (("f32", torch.float32), ("bf16", bf16)):
+        cases.append((2, 300, 8, 2, 128, dt, True, None, FLASH_TOL[name], None))
+    for kind in ("peaked", "zero_mean_v"):
+        cases.append((1, 2048, h["H"], h["K"], h["hd"], bf16, True, None, tight, kind))
+    for G in (1, 3, 5):
+        for window in (63, 64, 65, 129):
+            cases.append((1, 300, 2 * G, 2, 64, bf16, True, window, tight, None))
+    for hd in fa.HEAD_DIMS:
+        cases.append((2, 333, 6, 2, hd, bf16, True, None, tight, None))
     worst = 0.0
-    for i, (B, S_, H, K, hd, dt, causal, window, (atol, rtol)) in enumerate(cases):
+    for i, (B, S_, H, K, hd, dt, causal, window, (atol, rtol), kind) in enumerate(cases):
         q, k, v = flash_inputs(torch, B, S_, H, K, hd, dt, i)
+        if kind == "peaked":
+            q = (q.float() * 8).to(dt)
+        elif kind == "zero_mean_v":
+            v = (v.float() - v.float().mean(dim=1, keepdim=True)).to(dt)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = fa.flash_attention_torch(q, k, v, causal=causal, window=window)
@@ -890,8 +939,8 @@ def check_flash_vs_plain(torch) -> dict:
         ok = finite and out.dtype == dt and bool(torch.allclose(out.float(), ref.float(),
                                                                 atol=atol, rtol=rtol))
         log(f"check flash_attention B={B} S={S_} H={H} K={K} hd={hd} {str(dt)[6:]} "
-            f"causal={causal} window={window}: finite {finite}, max_abs_err {err:.3e} "
-            f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+            f"causal={causal} window={window}{' ' + kind if kind else ''}: finite {finite}, "
+            f"max_abs_err {err:.3e} (atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention case {i} disagrees with the plain version")
         worst = max(worst, err)
@@ -918,46 +967,59 @@ def check_flash_vs_plain(torch) -> dict:
 
 
 def time_flash(torch) -> dict:
-    """Phase 4, flash attention at the generate path's prefill shape (B=4,
-    S=1024, smollm-360m's heads, bf16, causal): kernel, plain version, and
+    """Phase 4, flash attention at smollm-360m's heads, bf16, causal, at
+    each shape of FLASH_TIMED: the kernel and
     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
-    (B, H, S, hd) views as the library call (timed here, never used by the
-    port).  The bound counts the least work, the causal half of the two
-    products, 4 * hd * B * H * S(S+1)/2 operations over the bf16
-    tensor-core rate, against q, k, v and o moved once."""
+    (B, H, S, hd) views (the library call: timed here, never used by the
+    port) in turns, kernel, library, library, kernel, each reading a median
+    of 10 launches, and the plain version.  The bound counts the least work,
+    the causal half of the two products, 4 * hd * B * H * S(S+1)/2
+    operations over the bf16 tensor-core rate, against q, k, v and o moved
+    once.  Each reading spans FLASH_BATCH launches (the device's time per
+    call); the same turns with one launch a reading, which adds the host's
+    time to launch, are kept beside them.  The first shape's numbers head
+    the result."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
-    B, S_ = FLASH_TIMED["B"], FLASH_TIMED["S"]
     H, K, hd = SMOLLM_HEADS["H"], SMOLLM_HEADS["K"], SMOLLM_HEADS["hd"]
-    q, k, v = flash_inputs(torch, B, S_, H, K, hd, torch.bfloat16, 99)
-    out = fa.flash_attention(q, k, v, causal=True)
-    ref = fa.flash_attention_torch(q, k, v, causal=True)
-    err = float((out.float() - ref.float()).abs().max())
-    lib = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                         is_causal=True, enable_gqa=True).transpose(1, 2)
-    lib_err = float((lib.float() - ref.float()).abs().max())
-    del ref, lib
-    ms = time_cuda(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = time_cuda(lambda: fa.flash_attention_torch(q, k, v, causal=True), reps=5, warmup=1)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    flops = 4 * hd * B * H * S_ * (S_ + 1) // 2
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
-    res = dict(B=B, S=S_, **SMOLLM_HEADS, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err, library_max_abs_err=lib_err,
-               flops=flops, nbytes=nbytes, TFLOPs=flops / ms / 1e9)
-    log(f"time flash_attention B={B} S={S_} H={H} K={K} hd={hd} bf16 causal: kernel {ms:.4f} ms "
-        f"({res['TFLOPs']:.2f} TFLOP/s of the least {flops / 1e9:.3f} GFLOP; bound "
-        f"{bound_ms:.4f} ms by {bound_by} over {nbytes / 1e6:.2f} MB, {bound_ms / ms:.1%} of it), "
-        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms "
-        f"(its max_abs_err {lib_err:.3e}), kernel max_abs_err {err:.3e}")
-    del q, k, v, qt, kt, vt, out
-    torch.cuda.empty_cache()
-    return res
+    shapes = []
+    for B, S_ in FLASH_TIMED:
+        q, k, v = flash_inputs(torch, B, S_, H, K, hd, torch.bfloat16, 99)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        ref = fa.flash_attention_torch(q, k, v, causal=True)
+        err = float((kern().float() - ref.float()).abs().max())
+        lib_err = float((lib().transpose(1, 2).float() - ref.float()).abs().max())
+        del ref
+        turns = [time_cuda(f, batch=FLASH_BATCH) for f in (kern, lib, lib, kern)]
+        single = [time_cuda(f) for f in (kern, lib, lib, kern)]
+        plain_ms = time_cuda(lambda: fa.flash_attention_torch(q, k, v, causal=True), reps=5,
+                             warmup=1)
+        flops = 4 * hd * B * H * S_ * (S_ + 1) // 2
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+        ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        shapes.append(dict(
+            B=B, S=S_, **SMOLLM_HEADS, ms=ms, library_ms=library_ms, plain_ms=plain_ms,
+            turns_ms=turns, single_launch_ms=(single[0] + single[3]) / 2,
+            library_single_launch_ms=(single[1] + single[2]) / 2, bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=err, library_max_abs_err=lib_err, flops=flops,
+            nbytes=nbytes, TFLOPs=flops / ms / 1e9))
+        log(f"time flash_attention B={B} S={S_} H={H} K={K} hd={hd} bf16 causal: kernel "
+            f"{ms:.4f} ms ({turns[0]:.4f}, {turns[3]:.4f}; {flops / ms / 1e9:.2f} TFLOP/s of the "
+            f"least {flops / 1e9:.3f} GFLOP; bound {bound_ms:.4f} ms by {bound_by} over "
+            f"{nbytes / 1e6:.2f} MB, {bound_ms / ms:.1%} of it), scaled_dot_product_attention "
+            f"{library_ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}; its max_abs_err "
+            f"{lib_err:.3e}), kernel / library {ms / library_ms:.2f}; one launch alone: kernel "
+            f"{single[0]:.4f}, {single[3]:.4f}, library {single[1]:.4f}, {single[2]:.4f} ms; "
+            f"plain {plain_ms:.4f} ms, kernel max_abs_err {err:.3e}")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return dict(shapes[0], shapes=shapes)
 
 
 def greedy_trace(torch, model, params, tokens, steps: int, cache_len: int):
@@ -1301,6 +1363,7 @@ def main() -> int:
         for line in src["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    ptxas: {line.strip()}")
+    hgmma = count_hgmma(info["sources"]["flash_attention"]["path"])
 
     # 3. each kernel vs its plain version; the encode vs the bit oracle
     worst = check_kernel_vs_plain(torch, cr)
@@ -1421,14 +1484,20 @@ def main() -> int:
                         for k in ("generate", "engine")),
         "launches_serving": {k: serve[ARCH][k]["launches"]["flash_attention"]
                              for k in ("generate", "engine")},
-        "max_abs_err": max(tflash["max_abs_err"], flash_check["worst_small"],
-                           *flash_check["full"].values()),
+        "max_abs_err": max(*(t["max_abs_err"] for t in tflash["shapes"]),
+                           flash_check["worst_small"], *flash_check["full"].values()),
         "ms": tflash["ms"], "plain_ms": tflash["plain_ms"], "bound_ms": tflash["bound_ms"],
         "bound_by": tflash["bound_by"], "library_ms": tflash["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True)",
         "shape": f"q ({tflash['B']}, {tflash['S']}, {tflash['H']}, {tflash['hd']}) bf16, k/v "
                  f"({tflash['B']}, {tflash['S']}, {tflash['K']}, {tflash['hd']}) bf16, causal",
+        "shapes": [{k: t[k] for k in ("B", "S", "ms", "library_ms", "plain_ms", "bound_ms",
+                                      "turns_ms", "single_launch_ms", "library_single_launch_ms",
+                                      "max_abs_err")} for t in tflash["shapes"]],
+        "route_by_dtype": {"bf16": "wgmma fed by TMA, P.V split bf16 hi + lo",
+                           "f32": "f32 FMAs on the CUDA cores"},
+        "hgmma_instructions": hgmma,
         "checks": flash_check,
     }]
     log(f"summary: spmd step {run['step_s']:.4f} s (median), peak {run['peak_gib']:.2f} GiB, "

@@ -6,70 +6,110 @@
 //
 //   o[b,i,h] = sum_j softmax_j(mask(scale * q[b,i,h] . k[b,j,h/(H/K)])) v[b,j,h/(H/K)]
 //
-// with scale = hd^-0.5 applied to q in f32 after the load, scores, the
-// running max m, the running sum l and the accumulator in f32, a masked
-// score set to NEG_INF = -1e30 by a select (causal: j <= i; window: j > i -
-// window), the correction exp(m_prev - m_new), kv tiles that are wholly
-// masked skipped by the TPU kernel's tile predicate, a row with l == 0
-// written as 0, and the output cast to q's dtype.  Because NEG_INF is
-// finite, a masked entry of a live tile gives exp(-1e30 - m) = 0 once the
-// row has a real score and 1 while m is still -1e30; the first real score
-// scales those 1s away by exp(-1e30 - m_new) = 0, as on the TPU.  No NaN
-// can arise: every value entering an exp is finite.
+// with scale = hd^-0.5, scores, the running max m, the running sum l and the
+// accumulator in f32, a masked score set to NEG_INF = -1e30 by a select
+// (causal: j <= i; window: j > i - window), the correction exp(m_prev -
+// m_new), kv tiles that are wholly masked skipped by the TPU kernel's tile
+// predicate, a row with l == 0 written as 0, and the output cast to q's
+// dtype.  Because NEG_INF is finite, a masked entry of a live tile gives
+// exp(-1e30 - m) = 0 once the row has a real score and 1 while m is still
+// -1e30; the first real score scales those 1s away by exp(-1e30 - m_new) = 0,
+// as on the TPU.  No NaN can arise: every value entering an exp is finite.
+//
+// Two instantiations, chosen by the dtype code of the C entry point and by
+// nothing else (neither is a fallback of the other):
+//
+//  - bf16: the tensor-core kernel below (flash_bf16_kernel): wgmma fed by
+//    TMA.  This is the serving prefill's path.
+//  - f32: the CUDA-core kernel (flash_attention_kernel<float, HD>): f32
+//    FMAs out of shared memory.  It serves the f32 cross-checks only.
 //
 // Bound: operations.  Causal prefill at smollm-360m's heads (H=15, K=5,
 // hd=64) does 4*hd*B*H*S(S+1)/2 multiply-adds counted as two operations
 // each (8.06 GFLOP at B=4, S=1024) on 21 MB of q, k, v and o: far above the
 // H100's ridge, so the least time is the product over the bf16 tensor-core
-// rate.  This first kernel runs f32 FMAs on the CUDA cores out of shared
-// memory (no tensor cores, no TMA, no warp specialisation): a right, simple
-// kernel; wgmma and TMA are later work.
+// rate, and the tensor cores are the lever.
 //
-// Design.
-//  - The TPU grid (B*H, n_q, n_kv) runs its kv axis in order on one core
-//    with m, l, acc in VMEM scratch.  Here one block owns one (b, h) and a
-//    tile of kQ = 64 query rows, and walks the kv tiles (kK = 64 rows) in
-//    order in a loop, with m, l and acc in registers.  Blocks of one head
-//    are adjacent in the grid, so its k and v tiles are shared through L2.
-//  - q, k and v are read in place through their (B,S,H,hd) / (B,S,K,hd)
-//    layout; there is no transpose copy.  K and V are never widened to H
-//    heads: the block indexes kv head h / (H/K).
-//  - The tiles are the kernel's own, not the TPU's 512-row blocks, and a
-//    ragged last tile is masked: a q row past S is loaded as zeros and never
-//    written, a k or v row past S is loaded as zeros and its score masked
-//    before the row max.  So any S runs.
-//  - 256 threads; thread (ty, tx) = (tid / 16, tid % 16) owns query rows
-//    ty + 16r (r < 4): their m and l (kept alike by the 16 threads of a
-//    half-warp), a 4 x 4 tile of scores (columns tx + 16c of the kv tile)
-//    and the accumulator columns tx + 16c (c < hd / 16).  Row max and row
-//    sum are shuffles across the half-warp.
-//  - Shared memory holds q (scaled, f32), the k and v tiles (f32) and the
-//    probabilities: rows padded by 4 floats, so each quarter-warp's 16-byte
-//    loads of neighbouring rows fall on distinct banks.  At hd = 64 that is
-//    69.6 KB, at hd = 128 118.8 KB, set with cudaFuncSetAttribute.
+// The bf16 kernel.
+//  - Arithmetic.  S = Q.K^T on bf16 q and k as they are, f32 accumulators
+//    (the products are exact, so S differs from the plain version's only in
+//    summation order); the f32 score is then multiplied by hd^-0.5 * log2(e)
+//    (folded into the fma before the exponent off the masked tiles) and
+//    exponentiated by ex2.approx (f32 rounding only).  P.V is split: P_hi =
+//    bf16(p), P_lo = bf16(p - P_hi), two wgmmas into one f32 accumulator.
+//    p rounded once to bf16 breaks the one-bf16-spacing hold of the output;
+//    the split keeps p to ~2^-16 (tests/test_torch_flash.py emulates both).
+//    So P.V is twice the least work, and the whole kernel 1.5x.
+//  - Layout.  One block owns one (b, h) and kBQ = 128 query rows: two
+//    consumer warpgroups of 64 rows each, and a producer warpgroup that
+//    hands its registers to them (setmaxnreg: 40 and 232 a thread).  kv
+//    tiles are kBK = 128 rows at hd <= 64 and 64 at hd 128 (the registers of
+//    S, P_hi, P_lo and O).  The grid runs the query tiles longest first (the
+//    last tile of a causal head has the most kv tiles), the heads of one kv
+//    head adjacent so their K and V tiles are shared through L2.
+//  - Loads.  TMA over 4-D tensor maps of the JAX layout, (hd, H, S, B) for
+//    q and (hd, K, S, B) for k and v (byte strides hd*2, heads*hd*2,
+//    S*heads*hd*2): no transpose copy, kv head h / (H/K) by coordinate.  Q
+//    is loaded once per block; K and V tiles run through a ring of kStages
+//    stages, each tracked by a full and an empty mbarrier: the producer's
+//    lane 0 issues the next tiles while the consumers compute on the
+//    current one.  Rows past S are filled with zeros by TMA and their scores
+//    masked before the row max, so any S runs.
+//  - Swizzle.  A tile row of min(hd, 64) bf16 is 32, 64 or 128 bytes, and
+//    the tensor map swizzles by that width (hd 16: 32 B, 32: 64 B, 64 and
+//    128: 128 B; hd 128 as two 64-column boxes).  The wgmma descriptors use
+//    the same swizzle: Q and K K-major (hd contiguous), V MN-major (hd
+//    contiguous, kv rows along the product's depth).
+//  - Registers.  S lives in the accumulator registers of an m64nNk16 wgmma;
+//    its fragment layout is the A-operand layout of the next wgmma, so P_hi
+//    and P_lo feed P.V from registers and never touch shared memory.  Row
+//    max and sum are quad shuffles; each thread owns two rows.
+//  - Overlap.  Each warpgroup runs a software pipeline: S of tile j on the
+//    tensor cores beside P.V of tile j - 1, its softmax beside the rest of
+//    that P.V.  The two warpgroups take turns to issue (named barriers), so
+//    one's softmax runs beside the other's products.
+//  - Masking by tile.  The block walks the kv tiles that the TPU's tile
+//    predicate keeps at (kBQ, kBK) tiles, and selects to NEG_INF only on
+//    tiles that cross the diagonal, the window's edge or S.
+//  - Output.  acc / l from registers to global memory as bf16 pairs, rows
+//    past S never written.
 //
-// The kernel allocates nothing and launches on the caller's stream; the
-// launch error is returned to the caller.
+// The f32 kernel.  One block owns one (b, h) and kQ = 64 query rows and
+// walks the kv tiles (kK = 64 rows) in a loop with m, l and acc in
+// registers; 256 threads, thread (ty, tx) = (tid / 16, tid % 16) owns rows
+// ty + 16r (r < 4) and accumulator columns tx + 16c; row max and row sum
+// are half-warp shuffles.  Shared memory holds q (scaled by hd^-0.5 in f32
+// after the load), the k and v tiles and the probabilities, rows padded by
+// 4 floats; a q, k or v row past S is loaded as zeros.
+//
+// Neither kernel allocates; both launch on the caller's stream, and the
+// launch error (or a failed tensor-map encode) is returned to the caller.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int kQ = 64;         // query rows of a tile
-constexpr int kK = 64;         // kv rows of a tile
-constexpr int kThreads = 256;
-constexpr int kPS = kK + 4;    // row stride of the probability tile
 constexpr float kNegInf = -1e30f;
 constexpr size_t kMaxSmem = 232448;  // an H100 block's shared-memory limit
 
 // dtype codes shared with the Python wrapper (q, k, v and o alike)
 enum : int { kF32 = 0, kBF16 = 1 };
 
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core kernel
+
+constexpr int kQ = 64;         // query rows of a tile
+constexpr int kK = 64;         // kv rows of a tile
+constexpr int kThreads = 256;
+constexpr int kPS = kK + 4;    // row stride of the probability tile
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -274,14 +314,585 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o, int 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+
+constexpr int kBQ = 128;        // query rows of a block: two consumer warpgroups of 64
+constexpr int kStages = 4;      // K/V ring depth
+constexpr int kConsumers = 256;  // the two consumer warpgroups' threads
+constexpr int kBThreads = kConsumers + 128;  // + the producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one TMA box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile swizzled by `sw` bytes (32, 64 or
+// 128: one tile row), rows `sw` bytes apart, 8-row groups 8 * sw apart
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int sw, uint32_t lbo_bytes) {
+  const uint64_t layout = sw == 128 ? 1 : sw == 64 ? 2 : 3;
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>((8 * sw) >> 4) << 32) | (layout << 62);
+}
+
+// 2^x on the MUFU unit, subnormal results flushed to 0 (below 2^-126 of a
+// row's largest p, far under the output's bf16 spacing)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barriers 1 and 2: the consumer warpgroups' turns at the tensor cores
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin registers that an async wgmma writes: no access to them moves across
+// this point (the waits above order the wgmma itself)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// S (64 x N, f32, N = 64 or 128) {+}= A (64 x 16, K-major in shared
+// memory) . B^T (N x 16, K-major); `accumulate` 0 overwrites.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O (64 x N, f32, N = 16, 32 or 64) += A (64 x 16, bf16 in registers) . B
+// (16 x N, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// bf16 pair (lo, hi), rounded to nearest, in one register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int HD>
+struct Tiles {
+  static constexpr int kCW = HD < 64 ? HD : 64;      // columns of a box (one swizzle row)
+  static constexpr int kSW = kCW * 2;                // its bytes: the swizzle width
+  static constexpr int kNC = HD / kCW;               // boxes across hd (2 at hd 128)
+  static constexpr int kBK = HD <= 64 ? 128 : 64;    // kv rows of a tile
+  static constexpr uint32_t kQBytes = kBQ * HD * 2;
+  static constexpr uint32_t kKVBytes = kBK * HD * 2;  // one K or V tile
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * kStages * static_cast<size_t>(kKVBytes) + 64;
+};
+
+// grid: n_qt * B * H blocks, the query tiles longest first; block: two
+// consumer warpgroups (rows 0-63, 64-127 of the tile) and a producer
+// warpgroup.
+template <int HD>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+                  int H, int K, int BH, int n_qt, int causal, int window, float scale) {
+  using T = Tiles<HD>;
+  constexpr int kCW = T::kCW, kSW = T::kSW, kNC = T::kNC, kBK = T::kBK;
+  extern __shared__ uint8_t smem_raw[];
+  // TMA swizzle and wgmma descriptors want 1024-byte aligned tiles
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* Qs = base;                    // [kNC][kBQ][kCW]
+  uint8_t* Ks = Qs + T::kQBytes;         // [kStages][kNC][kBK][kCW]
+  uint8_t* Vs = Ks + kStages * T::kKVBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kStages * T::kKVBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / BH;  // longest first
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  const int q0 = qt * kBQ;
+
+  // the block's kv tiles: the TPU's tile predicate (flash_attention.py:48-53)
+  // at (kBQ, kBK) tiles
+  const int n_kt = (S + kBK - 1) / kBK;
+  const int kt_end = causal ? min(n_kt, (q0 + kBQ - 1) / kBK + 1) : n_kt;
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lim = q0 - window - (kBK - 1);  // need kt * kBK > lim
+    kt_begin = lim < 0 ? 0 : lim / kBK + 1;
+  }
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer: hands its registers to the consumers; lane 0 issues every
+    // load.  The ring's empty barriers start in phase 0, so waiting on
+    // parity 1 passes on the first round.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers) {
+      mbar_expect_tx(qbar, T::kQBytes);
+      for (int c = 0; c < kNC; ++c)
+        tma_load(Qs + c * (kBQ * kSW), &tq, qbar, c * kCW, h, q0, b);
+      int stage = 0, phase = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * T::kKVBytes);
+        for (int c = 0; c < kNC; ++c) {
+          tma_load(Ks + stage * T::kKVBytes + c * (kBK * kSW), &tk, &full[stage], c * kCW, kh,
+                   kt * kBK, b);
+          tma_load(Vs + stage * T::kKVBytes + c * (kBK * kSW), &tv, &full[stage], c * kCW, kh,
+                   kt * kBK, b);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; thread (warp w,
+  // lane) owns rows rA = 16 w + lane / 4 and rB = rA + 8 of them, and in
+  // each 8-column block of S and O the columns 2 (lane % 4) + {0, 1}
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int qw0 = q0 + 64 * wg;
+  const int rowA = qw0 + 16 * warp + lane / 4, rowB = rowA + 8;
+  const int col_in = 2 * (lane % 4);
+  const float sl2 = scale * kLog2e;
+
+  // tile kt sits in stage (kt - kt_begin) % kStages, in that stage's round
+  // (kt - kt_begin) / kStages
+  auto wait_full = [&](int kt) {
+    const int i = kt - kt_begin;
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+  };
+  auto release = [&](int kt) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(kt - kt_begin) % kStages]);
+  };
+  auto stage_of = [&](int kt) { return (kt - kt_begin) % kStages; };
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNC][kCW / 2];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < kCW / 2; ++i) acc[c][i] = 0.f;
+  float s[kBK / 2];
+  uint32_t phi[kBK / 16][4], plo[kBK / 16][4];  // P of the previous tile, split
+
+  // S = Q . K^T of tile kt, issued (not waited for)
+  const uint8_t* Qw = Qs + 64 * wg * kSW;  // this warpgroup's 64 rows in each box
+  auto issue_qk = [&](int kt) {
+    const uint8_t* Kt = Ks + stage_of(kt) * T::kKVBytes;
+#pragma unroll
+    for (int t = 0; t < HD / 16; ++t) {
+      // depth step t: box t * 16 / kCW, byte offset (t * 16 % kCW) * 2 in its row
+      const int c = t * 16 / kCW, off = (t * 16 % kCW) * 2;
+      wgmma_ss(s, smem_desc(Qw + c * (kBQ * kSW) + off, kSW, 16),
+               smem_desc(Kt + c * (kBK * kSW) + off, kSW, 16), t);
+    }
+    wgmma_commit();
+  };
+  // O += P_hi . V + P_lo . V of tile kt, V MN-major: depth step kk is kv
+  // rows 16 kk .. 16 kk + 15; issued (not waited for)
+  auto issue_pv = [&](int kt) {
+    const uint8_t* Vt = Vs + stage_of(kt) * T::kKVBytes;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t dv = smem_desc(Vt + c * (kBK * kSW) + kk * 16 * kSW, kSW, kBK * kSW);
+        wgmma_rs(acc[c], phi[kk], dv);
+        wgmma_rs(acc[c], plo[kk], dv);
+      }
+    wgmma_commit();
+  };
+  // S of tile kt (landed) -> p = 2^(scaled s - m_new) in place; m and l
+  // updated; corr returns the rescaling of the old O
+  auto softmax = [&](int kt, float (&corr)[2]) {
+    fence_regs(s);
+    const int k0 = kt * kBK;
+    // scale and mask by select on tiles that cross the diagonal, the
+    // window's edge or S.  Register i holds column base + off(i) of its
+    // row, live for lo < off <= hi: col < S, col <= row if causal, col >
+    // row - window if windowed.
+    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > qw0) ||
+                      (window > 0 && k0 <= qw0 + 63 - window);
+    if (edge) {
+      const int base = k0 + col_in;
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? rowB : rowA;
+        hi[r] = (causal ? min(S - 1, row) : S - 1) - base;
+        lo[r] = window > 0 ? row - window - base : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int off = 8 * (i / 4) + (i & 1), r = (i >> 1) & 1;
+        s[i] = off > lo[r] && off <= hi[r] ? s[i] * sl2 : kNegInf;
+      }
+    }
+    // the tile's row max; off the edge taken on the unscaled scores and
+    // scaled after (sl2 > 0 and rounding are monotonic: the same max)
+    float mx[2] = {kNegInf, kNegInf}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mx[r] = fmaxf(m[r], edge ? mx[r] : mx[r] * sl2);
+      corr[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+    // p = 2^(scaled s - m): off the edge the scale folds into one fma
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] = ex2(fmaf(s[i], sl2, -m[(i >> 1) & 1]));
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) rs[(i >> 1) & 1] += s[i];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+  };
+  // p split into bf16 hi + bf16 lo of the remainder, packed in the A-operand
+  // layout of m64nNk16: register j of depth step kk holds S registers
+  // 8 kk + 2 j, 8 kk + 2 j + 1
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j;
+        const uint32_t hi = pack_bf16(s[i], s[i + 1]);
+        phi[kk][j] = hi;
+        plo[kk][j] = pack_bf16(s[i] - __uint_as_float(hi << 16),
+                               s[i + 1] - __uint_as_float(hi & 0xFFFF0000u));
+      }
+  };
+
+  // the warpgroups take turns to issue their wgmmas (named barriers 1 and
+  // 2), so one's softmax runs beside the other's products.  Warpgroup 0
+  // goes first; each takes kt_end - kt_begin + 1 turns, and warpgroup 1
+  // hands over none after its last.
+  auto my_turn = [&]() { bar_sync(1 + wg, kConsumers); };
+  auto your_turn = [&](bool last) {
+    if (!(last && wg == 1)) bar_arrive(2 - wg, kConsumers);
+  };
+  if (wg == 1) bar_arrive(1, kConsumers);
+
+  // software pipeline: S of tile kt runs on the tensor cores beside P.V of
+  // tile kt - 1, and the softmax of kt beside the rest of that P.V.  Both
+  // warpgroups walk the block's tiles (never empty: the diagonal or the
+  // window's last tile is live); a tile wholly masked for one of them adds
+  // 2^(-1e30 - m) = 0 once its rows have a real score, as on the TPU.
+  mbar_wait(qbar, 0);
+  float corr[2];
+  wait_full(kt_begin);
+  my_turn();
+  wgmma_fence();
+  issue_qk(kt_begin);
+  your_turn(false);
+  wgmma_wait<0>();
+  softmax(kt_begin, corr);  // O is 0: nothing to rescale
+  pack_p();
+  for (int kt = kt_begin + 1; kt < kt_end; ++kt) {
+    wait_full(kt);
+    my_turn();
+    wgmma_fence();
+    issue_qk(kt);
+    issue_pv(kt - 1);
+    your_turn(false);
+    wgmma_wait<1>();  // S of kt has landed; P.V of kt - 1 may run on
+    softmax(kt, corr);
+    wgmma_wait<0>();
+    release(kt - 1);
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) {
+      fence_regs(acc[c]);
+#pragma unroll
+      for (int i = 0; i < kCW / 2; ++i) acc[c][i] *= corr[(i >> 1) & 1];
+    }
+    pack_p();
+  }
+  my_turn();
+  wgmma_fence();
+  issue_pv(kt_end - 1);
+  your_turn(true);
+  wgmma_wait<0>();
+  release(kt_end - 1);
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) fence_regs(acc[c]);
+
+  // o = acc / l, l summed over the quad; a row with l == 0 written as 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const long long row_stride = static_cast<long long>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rowB : rowA;
+    if (row >= S) continue;
+    const float den = l[r] == 0.f ? 1.f : l[r];
+    __nv_bfloat16* orow = o + (static_cast<long long>(b) * S + row) * row_stride +
+                          static_cast<long long>(h) * HD;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int j = 0; j < kCW / 8; ++j) {
+        const float x0 = acc[c][4 * j + 2 * r], x1 = acc[c][4 * j + 2 * r + 1];
+        *reinterpret_cast<__nv_bfloat162*>(orow + c * kCW + 8 * j + col_in) =
+            __floats2bfloat162_rn(x0 / den, x1 / den);
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver the process has loaded (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* drv = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return drv ? reinterpret_cast<EncodeTiled>(dlsym(drv, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// the 4-D map (hd, heads, S, B) of a contiguous (B, S, heads, hd) bf16
+// tensor, boxes of min(hd, 64) columns x `rows` rows, swizzled by a box row,
+// zeros past S
+bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd, int heads, int S,
+                int B, int rows) {
+  const cuuint32_t cw = hd < 64 ? hd : 64;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(hd) * 2,
+                                 static_cast<cuuint64_t>(heads) * hd * 2,
+                                 static_cast<cuuint64_t>(S) * heads * hd * 2};
+  const cuuint32_t box[4] = {cw, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cw == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cw == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                        int K, int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Tiles<HD>::kSmem;
+  static_assert(smem <= kMaxSmem, "flash_attention tiles exceed an H100 block's shared memory");
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(encode, &tq, q, HD, H, S, B, kBQ) ||
+      !tensor_map(encode, &tk, k, HD, K, S, B, Tiles<HD>::kBK) ||
+      !tensor_map(encode, &tv, v, HD, K, S, B, Tiles<HD>::kBK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const long long blocks = static_cast<long long>(B) * H * n_qt;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  flash_bf16_kernel<HD><<<static_cast<unsigned>(blocks), kBThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, B * H, n_qt, causal, window, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16_hd(const void* q, const void* k, const void* v, void* o, int B, int S,
+                           int H, int K, int hd, int causal, int window, float scale,
+                           cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_bf16<16>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
+    case 32: return launch_bf16<32>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
+    case 64: return launch_bf16<64>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
+    case 128: return launch_bf16<128>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // q (B,S,H,hd), k and v (B,S,K,hd), all contiguous and of dtype_code ->
 // o (B,S,H,hd) of the same dtype.  hd in {16, 32, 64, 128}, H % K == 0;
-// window <= 0 means no window.  Returns the cudaError_t of the launch (0 on
-// success).
+// window <= 0 means no window.  bf16 runs the tensor-core kernel (q, k and v
+// 16-byte aligned, as TMA asks), f32 the CUDA-core kernel.  Returns the
+// cudaError_t of the launch (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int S,
                            int H, int K, int hd, int causal, int window, float scale,
                            int dtype_code, void* stream) {
@@ -290,7 +901,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   if (dtype_code == kF32)
     return launch_hd<float>(q, k, v, o, B, S, H, K, hd, causal, window, scale, s);
   if (dtype_code == kBF16)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, K, hd, causal, window, scale, s);
+    return launch_bf16_hd(q, k, v, o, B, S, H, K, hd, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }
 

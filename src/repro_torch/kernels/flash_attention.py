@@ -15,6 +15,11 @@ h reading kv head h // (H/K), the output (B,S,H,hd) in q's dtype.
   it runs the plain version.  There is no fallback between the two: CUDA
   tensors launch the kernel or raise.
 
+The kernel has two instantiations, picked by the dtype alone: bf16 runs on
+the tensor cores (``wgmma`` fed by TMA, P.V split into bf16 hi + lo so the
+output stays within one bf16 spacing of the plain version), f32 on the CUDA
+cores (it serves the f32 cross-checks).  Neither is a fallback of the other.
+
 Unlike the TPU kernel, the CUDA kernel takes any S (it masks a ragged last
 tile) and reads q, k and v through their strides, without a transpose copy.
 There is no backward: serving's prefill is forward-only, and training keeps
@@ -114,8 +119,9 @@ def flash_attention(
 
     CPU tensors run the plain version; CUDA tensors launch the kernel
     (counted in ``flash_attention.launches``) or raise: on a shape, dtype or
-    head size the kernel does not take, on tensors that are not contiguous,
-    and on a failed build or launch."""
+    head size the kernel does not take, on tensors that are not contiguous
+    or not 16-byte aligned (TMA reads from 16-byte aligned bases), and on a
+    failed build or launch."""
     B, S, H, K, hd = _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, window=window)
@@ -123,6 +129,8 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cpu or cuda tensors, not {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start at 16-byte aligned addresses")
     o = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):

@@ -153,3 +153,42 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         args = (q[0], k[0], v[0])
     with pytest.raises(err):
         fa.flash_attention(*args, **kw)
+
+
+def _emulate_tensor_core_p(q, k, v, scheme):
+    """The bf16 CUDA kernel's arithmetic in PyTorch, causal: f32 scores from
+    the bf16 q and k, scaled after the product, an f32 softmax, and p
+    rounded before P.V: ``"split"`` as the kernel does it (bf16 hi + bf16
+    lo of the remainder, two products into one f32 sum), ``"bf16_once"`` as
+    FlashAttention-3 does it; the output rounded to bf16."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    f32 = torch.float32
+    qh = q.to(f32).reshape(B, S, K, H // K, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qh, k.to(f32)) * (hd**-0.5)
+    pos = torch.arange(S)
+    s = torch.where(pos[None, :] <= pos[:, None], s, torch.full((), fa.NEG_INF))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    hi = p.to(torch.bfloat16).to(f32)
+    parts = [hi, (p - hi).to(torch.bfloat16).to(f32)] if scheme == "split" else [hi]
+    o = sum(torch.einsum("bkgqs,bskh->bqkgh", x, v.to(f32)) for x in parts)
+    return (o / l.permute(0, 3, 1, 2, 4)).reshape(B, S, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("scheme,within", [("split", True), ("bf16_once", False)])
+def test_tensor_core_precision_scheme_holds_one_bf16_spacing(scheme, within):
+    """The bf16 kernel's precision scheme against the plain version at
+    smollm-360m's heads (B=1, S=1024, H=15, K=5, hd=64, causal) at the
+    card's hold, one bf16 spacing (atol 1e-4, rtol 2^-7): P.V on p split
+    into bf16 hi + lo is within it everywhere; p rounded once to bf16 is
+    not, which shows that the hold tells the two apart."""
+    r = np.random.default_rng(15)
+    q, k, v = [torch.from_numpy(r.normal(size=(1, 1024, n, 64)).astype(np.float32))
+               .to(torch.bfloat16) for n in (15, 5, 5)]
+    ref = fa.flash_attention_torch(q, k, v, causal=True).float()
+    out = _emulate_tensor_core_p(q, k, v, scheme).float()
+    over = int(((out - ref).abs() > 1e-4 + 2.0**-7 * ref.abs()).sum())
+    assert (over == 0) == within, f"{scheme}: {over} of {ref.numel()} outputs over one spacing"
+    if within:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=2.0**-7)

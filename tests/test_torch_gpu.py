@@ -335,6 +335,62 @@ def test_cuda_flash_attention_head_dim_128(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["peaked", "zero_mean_v"])
+def test_cuda_flash_attention_stress_at_long_prompt(cuda_device, kind):
+    """S=2048 at smollm-360m's heads, bf16, within one bf16 spacing: q x 8
+    peaks the softmax, so the running max moves by large steps and the
+    rescaling of l and acc decides; v with its mean over S removed gives
+    outputs near 0, where atol decides."""
+    q, k, v = _qkv(1, 2048, 15, 5, 64, torch.float32, cuda_device, 2048)
+    if kind == "peaked":
+        q = q * 8
+    else:
+        v = v - v.mean(dim=1, keepdim=True)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    _flash_vs_plain(q, k, v, True, None, _FLASH_TOL_TIGHT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 3, 5])
+@pytest.mark.parametrize("window", [63, 64, 65, 129])
+def test_cuda_flash_attention_gqa_windows_across_tile_edges(cuda_device, G, window):
+    """GQA groups of G query heads per kv head, hd 64, bf16, causal, with
+    windows on either side of the kernel's 64-row kv tiles, within one bf16
+    spacing."""
+    _flash_vs_plain(*_qkv(1, 300, 2 * G, 2, 64, torch.bfloat16, cuda_device, G + window),
+                    True, window, _FLASH_TOL_TIGHT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_every_head_size_bf16(cuda_device, hd, causal):
+    """Every head size in bf16 at a ragged S: each has its own swizzle
+    (32, 64 or 128 bytes; hd 128 in two boxes), which TMA and the wgmma
+    descriptors must agree on."""
+    _flash_vs_plain(*_qkv(2, 333, 6, 2, hd, torch.bfloat16, cuda_device, hd), causal, None,
+                    _FLASH_TOL_TIGHT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_cuda_flash_attention_refuses_misaligned_bases(cuda_device, which):
+    """TMA reads from 16-byte aligned bases: a contiguous view at a storage
+    offset of one element is refused before any launch."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    qkv = dict(zip("qkv", _qkv(1, 64, 4, 2, 32, torch.bfloat16, cuda_device, 0)))
+    t = qkv[which]
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+    qkv[which] = flat[1:].view(t.shape).copy_(t)
+    assert qkv[which].is_contiguous() and qkv[which].data_ptr() % 16
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(qkv["q"], qkv["k"], qkv["v"])
+    assert flash_attention.launches == before
+
+
+@pytest.mark.gpu
 def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda_device):
     from repro_torch.kernels.flash_attention import flash_attention
 
