@@ -10,8 +10,8 @@ never imports ``jax`` or the JAX package):
   2. the build of every kernel source in the checkout (one ``nvcc`` per
      ``csrc/*.cu``, all started together, sm_90a), with ptxas' register and
      spill report for each entry, and the count of HGMMA (wgmma)
-     instructions in flash attention's library where the toolkit has
-     ``cuobjdump`` (0 fails);
+     instructions in flash attention's and the SSD scan's libraries where
+     the toolkit has ``cuobjdump`` (0 fails);
   3. each kernel against its plain PyTorch version on the card, over
      ragged shapes and every dtype it takes, with the tolerance stated; the
      fused int8 encode BIT-equal to the wire format's numpy oracle (whose
@@ -29,7 +29,9 @@ never imports ``jax`` or the JAX package):
      time for the wire kernels, and one PyTorch library call computing the
      same function where there is one (timed here, never used by the port);
      flash attention at the generate prefill's shape and the engine's
-     longest and shortest prompts, kernel and library call in turns;
+     longest and shortest prompts, kernel and library call in turns; the
+     SSD scan at the training micro-batch, the generate prefill and the
+     engine's longest prompt;
   5. the main path: ``repro_torch.launch.train`` on smollm-360m at full
      width, spmd backend, heter_aware, s=1, m=4, one faulted worker per
      step, 4 steps, checking losses, the decode metrics and that
@@ -59,7 +61,9 @@ never imports ``jax`` or the JAX package):
      with tokens in [0, vocab), the prefill kernel (flash attention, or the
      SSD scan) launches once per layer and prefill call and never in
      decode; prefill and decode-step times, tokens per wall second, TTFT
-     on the virtual clock against wait-for-all, peak memory;
+     on the virtual clock against wait-for-all, peak memory; one more
+     ``generate`` prefill under ``torch.profiler`` for its device busy time
+     and the prefill kernel's part of it;
   8. the serving cross-checks in f32 with TF32 off: prefill through the
      kernel against the plain version (logits within 1e-4 of max|logit|,
      cache leaves), ``generate`` tokens equal, and continuous batching equal
@@ -98,7 +102,7 @@ MAMBA_ARGS = [*SLICE_ARGS[:1], MAMBA, *SLICE_ARGS[2:], "--seq-len", str(MAMBA_SE
 D_MAMBA = 368_338_432  # mamba2-370m parameters (bf16, A_log / D / dt_bias f32)
 # the full mamba2 layer's SSD scan: B = part_mb, S, H, P, G, N, chunk
 SSD_FULL = dict(B=2, S=MAMBA_SEQ, H=32, P=64, G=1, N=128, chunk=256)
-SSD_TILE = 64  # the kernel's own tile along S (csrc/ssd_scan.cu kT)
+SSD_CHUNK = 128  # the tensor-core kernel's own chunk along S (csrc/ssd_scan.cu kL)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 F32_FLOPS = 67e12  # H100 SXM published f32 rate outside the tensor cores
 # H100 SXM published dense bf16 tensor-core rate (NVIDIA H100 datasheet,
@@ -114,6 +118,10 @@ FLASH_BATCH = 20  # launches a timed reading of flash attention spans
 GEN = dict(B=4, S=1024, new=64, cache_len=1088)
 TRACE = dict(n=16, prompt=(128, 2048), new=(32, 128), gap_s=0.3, n_slots=8, cache_len=2176,
              m=8, s=2, delay=5.0)
+# ssd_scan's timed shapes (B, S): the training micro-batch (the kernels
+# line's ms), generate's prefill and the engine's longest prompt
+SSD_TIMED = ((SSD_FULL["B"], SSD_FULL["S"]), (GEN["B"], GEN["S"]), (1, TRACE["prompt"][1]))
+SSD_BATCH = 20  # calls a timed reading of ssd_scan spans
 # flash_attention against its plain version beyond the JAX test's shapes:
 # (atol, rtol).  In bf16 one spacing of the value (2^-7 of it at most) over
 # a floor for values near zero; in f32 a few f32 spacings of summation order.
@@ -161,6 +169,28 @@ def time_cuda(fn, reps: int = 10, warmup: int = 2, batch: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_split(torch, fn, calls: int) -> dict[str, float]:
+    """Device milliseconds a call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``calls`` calls; empty where the profiler sees
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            key = ev.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = key.split("(")[0].strip()[:60]
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / calls
+    return out
+
+
 def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: bytes over the HBM rate or
     operations over ``rate`` (default the f32 rate), whichever is larger."""
@@ -171,7 +201,7 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, 
 def count_hgmma(lib: str) -> int | None:
     """Phase 2: the HGMMA (wgmma) instructions in a built library's SASS,
     where the toolkit has ``cuobjdump``; None where it has not.  Fails on 0:
-    the bf16 flash kernel must run on the tensor cores."""
+    the bf16 flash and SSD kernels must run on the tensor cores."""
     import os
     import shutil
 
@@ -185,7 +215,7 @@ def count_hgmma(lib: str) -> int | None:
     n = sum("HGMMA" in line for line in sass.splitlines())
     log(f"cuobjdump -sass {Path(lib).name}: {n} HGMMA instructions")
     if n == 0:
-        raise AssertionError("flash_attention's library has no HGMMA instruction")
+        raise AssertionError(f"{Path(lib).name} has no HGMMA instruction")
     return n
 
 
@@ -741,8 +771,9 @@ def check_ssd_vs_plain(torch) -> dict:
     of ``generate``, B=1 S=2048 of the engine's longest prompt) with bf16
     B/C, as the bf16 model gives them.  The decay is exp of a
     difference of cumulative sums, which the two sum in different orders
-    (64-row tiles against 256-row chunks): where |cumsum| reaches hundreds,
-    the f32 spacing (6e-5 at 800) moves the decay by about 1e-4 relative."""
+    (the kernels' own chunks against 256-row ones): where |cumsum| reaches
+    hundreds, the f32 spacing (6e-5 at 800) moves the decay by about 1e-4
+    relative."""
     from repro_torch.kernels import ssd_scan as ssd
 
     worst = 0.0
@@ -795,43 +826,65 @@ def check_ssd_vs_plain(torch) -> dict:
 
 
 def time_ssd(torch) -> dict:
-    """Phase 4, the SSD scan at the full mamba2 layer (bf16 B/C, as the main
-    path gives it): kernel, plain version; no library call computes it.
-    The bound counts the least work of any form of the scan: the state
+    """Phase 4, the SSD scan at the full mamba2 layer's heads (H=32, P=64,
+    G=1, N=128, chunk 256) and bf16 B/C, as the main path gives them, at
+    each (B, S) of SSD_TIMED: the training micro-batch, ``generate``'s
+    prefill and the engine's longest prompt.  Each kernel reading spans
+    SSD_BATCH calls (the device's time a call once the host runs ahead);
+    the plain version is read one call at a time; no library call computes
+    it.  The bound counts the least work of any form of the scan: the state
     update and the readout, one multiply-add each per (row, head, p, n),
-    4*B*S*H*P*N operations over the f32 rate (the chunked form's causal
-    triangle only adds to it), against each input read once and y, h
-    written once.  The kernel's own count, its 64-row tiles' lower
-    triangles included, is logged beside it."""
+    4*B*S*H*P*N operations, over the bf16 tensor-core rate (the unit the
+    bf16 kernel runs them on), against each input read once and y, h
+    written once; the same operations over the f32 CUDA-core rate are
+    logged beside it, and so is the tensor-core kernel's own executed work
+    (its split products and its 128-row chunks' triangles, csrc/ssd_scan.cu).
+    The first shape's numbers head the result."""
     from repro_torch.kernels import ssd_scan as ssd
 
     f = SSD_FULL
-    B, S_, H, P, G, N = f["B"], f["S"], f["H"], f["P"], f["G"], f["N"]
-    x, dA, Bm, Cm = ssd_inputs(torch, B, S_, H, P, G, N, torch.bfloat16, 12, model_dA=True)
-    y, h = ssd.ssd_scan(x, dA, Bm, Cm, f["chunk"])
-    py, ph = ssd.ssd_scan_torch(x, dA, Bm, Cm, f["chunk"])
-    err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
-    ms = time_cuda(lambda: ssd.ssd_scan(x, dA, Bm, Cm, f["chunk"]))
-    plain_ms = time_cuda(lambda: ssd.ssd_scan_torch(x, dA, Bm, Cm, f["chunk"]), reps=5, warmup=1)
-    nbytes = (x.numel() + dA.numel()) * 4 + (Bm.numel() + Cm.numel()) * 2 + (y.numel() + h.numel()) * 4
-    flops = 4 * B * S_ * H * P * N
-    # the kernel's work: C B^T per group and its product with X per head over
-    # each 64-row tile's lower triangle (T(T+1)/2 pairs), and the state terms
-    tri = SSD_TILE * (SSD_TILE + 1) // 2
-    flops_kernel = 2 * B * (S_ // SSD_TILE) * tri * (G * N + H * P) + flops
-    bound_ms, bound_by = bound(nbytes, flops)
-    res = dict(shape=f, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               max_abs_err=err, flops=flops, flops_kernel=flops_kernel, nbytes=nbytes,
-               TFLOPs=flops / ms / 1e9)
-    log(f"time ssd_scan B={B} S={S_} H={H} P={P} G={G} N={N} bf16 B/C: kernel {ms:.4f} ms "
-        f"({res['TFLOPs']:.2f} TFLOP/s of the least {flops / 1e9:.3f} GFLOP; bound "
-        f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it; the kernel's own "
-        f"{flops_kernel / 1e9:.3f} GFLOP at its 64-row tiles would take "
-        f"{bound(nbytes, flops_kernel)[0]:.4f} ms), {nbytes / 1e6:.2f} MB moved, plain "
-        f"{plain_ms:.4f} ms, library call none ({NO_SSD_LIBRARY}), max_abs_err {err:.3e}")
-    del x, dA, Bm, Cm, y, h, py, ph
-    torch.cuda.empty_cache()
-    return res
+    H, P, G, N, chunk = f["H"], f["P"], f["G"], f["N"], f["chunk"]
+    shapes = []
+    for B, S_ in SSD_TIMED:
+        x, dA, Bm, Cm = ssd_inputs(torch, B, S_, H, P, G, N, torch.bfloat16, 12, model_dA=True)
+        y, h = ssd.ssd_scan(x, dA, Bm, Cm, chunk)
+        py, ph = ssd.ssd_scan_torch(x, dA, Bm, Cm, chunk)
+        err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
+        del y, h, py, ph
+        ms = time_cuda(lambda: ssd.ssd_scan(x, dA, Bm, Cm, chunk), batch=SSD_BATCH)
+        passes = device_split(torch, lambda: ssd.ssd_scan(x, dA, Bm, Cm, chunk), SSD_BATCH)
+        plain_ms = time_cuda(lambda: ssd.ssd_scan_torch(x, dA, Bm, Cm, chunk), reps=5, warmup=1)
+        # x, dA, B, C read once; y and h written once
+        nbytes = (2 * x.numel() + dA.numel() + B * H * P * N) * 4 + (Bm.numel() + Cm.numel()) * 2
+        flops = 4 * B * S_ * H * P * N
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+        f32_bound_ms = bound(nbytes, flops)[0]
+        # the tensor-core kernel's executed work a call, at its L-row chunks:
+        # C B^T per (batch, group, chunk) over the 64 x 64 and 64 x L blocks
+        # its two row halves read; per (batch, chunk, head) the state
+        # product twice (X tail split), the readout twice (h split, chunks
+        # after the first) and the intra-chunk product three times
+        nc, L = -(-S_ // SSD_CHUNK), SSD_CHUNK
+        tri = 64 * 64 + 64 * L
+        flops_kernel = (2 * B * nc * (G * tri * N + H * (2 * P * L * N + 3 * tri * P))
+                        + 2 * 2 * B * (nc - 1) * H * L * P * N)
+        kernel_ms = bound(nbytes, flops_kernel, BF16_FLOPS)[0]
+        shapes.append(dict(B=B, S=S_, ms=ms, passes_ms=passes, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, f32_bound_ms=f32_bound_ms,
+                           max_abs_err=err, flops=flops, flops_kernel=flops_kernel,
+                           nbytes=nbytes, TFLOPs=flops / ms / 1e9))
+        log(f"time ssd_scan B={B} S={S_} H={H} P={P} G={G} N={N} bf16 B/C: kernel {ms:.4f} ms "
+            f"a call ({SSD_BATCH} calls a reading; {flops / ms / 1e9:.2f} TFLOP/s of the least "
+            f"{flops / 1e9:.3f} GFLOP; bound {bound_ms:.4f} ms by {bound_by} over "
+            f"{nbytes / 1e6:.2f} MB, {bound_ms / ms:.1%} of it; the same operations on the f32 "
+            f"CUDA cores {f32_bound_ms:.4f} ms; the tensor-core kernel's own "
+            f"{flops_kernel / 1e9:.3f} GFLOP would take {kernel_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library call none ({NO_SSD_LIBRARY}), max_abs_err "
+            f"{err:.3e}; device time a call by kernel (profiler): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()))
+        del x, dA, Bm, Cm
+        torch.cuda.empty_cache()
+    return dict(shapes[0], shape=f, shapes=shapes)
 
 
 def mamba_kernel_check(torch) -> dict:
@@ -1091,7 +1144,8 @@ def serve_path(torch, arch: str) -> dict:
     each and read just after.  The prefill kernel (flash attention for
     smollm, the SSD scan for mamba2) launches once per layer and prefill
     call and never in decode; every request completes with tokens in
-    [0, vocab)."""
+    [0, vocab).  One more generate prefill, profiled outside the counted
+    windows, gives the device's busy time against the prefill's wall time."""
     import numpy as np
 
     from repro_torch.approx.deadline import SLOPolicy
@@ -1143,6 +1197,21 @@ def serve_path(torch, arch: str) -> dict:
     log(f"serve {arch} generate B={GEN['B']} S={GEN['S']} new={GEN['new']}: prefill "
         f"{gen_prefill_ms:.2f} ms, decode step median {gen_decode_ms:.2f} ms, "
         f"{gen_toks.size / gen_wall:.1f} generated tokens per wall second")
+    # the same prefill once more under torch.profiler, outside the counted
+    # windows: the device's busy time and the prefill kernel's part of it,
+    # against the unprofiled prefill's wall time
+    dev_prompts = torch.as_tensor(prompts, device=params["embed"].device)
+    with torch.inference_mode():
+        split = device_split(torch, lambda: model.prefill(
+            params, {"tokens": dev_prompts}, cache_len=GEN["cache_len"]), 1)
+    busy = sum(split.values())
+    # the kernels' device names: flash_bf16_kernel, ssd_scan_*_kernel
+    kernel_ms = sum(v for k, v in split.items() if k.startswith(kernel.split("_")[0]))
+    log(f"serve {arch} generate prefill under torch.profiler: device busy {busy:.2f} ms, "
+        f"{busy / gen_prefill_ms:.1%} of the unprofiled prefill's {gen_prefill_ms:.2f} ms wall; "
+        f"{kernel} {kernel_ms:.2f} ms of it ({kernel_ms / busy:.1%}); the largest: "
+        + ", ".join(f"{k} {v:.2f} ms"
+                    for k, v in sorted(split.items(), key=lambda kv: -kv[1])[:5]))
 
     # ServingEngine.run on the trace of examples/serve_lm.py
     tr = TRACE
@@ -1182,6 +1251,7 @@ def serve_path(torch, arch: str) -> dict:
                 for r in metrics.records]
     res = dict(
         generate=dict(launches=gen_launches, prefill_ms=gen_prefill_ms,
+                      prefill_device_busy_ms=busy, prefill_kernel_device_ms=kernel_ms,
                       decode_step_ms=gen_decode_ms, tokens_per_wall_s=gen_toks.size / gen_wall,
                       wall_s=gen_wall),
         engine=dict(launches=eng_launches, prefill_calls=len(calls["prefill"]),
@@ -1364,6 +1434,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    ptxas: {line.strip()}")
     hgmma = count_hgmma(info["sources"]["flash_attention"]["path"])
+    ssd_hgmma = count_hgmma(info["sources"]["ssd_scan"]["path"])
 
     # 3. each kernel vs its plain version; the encode vs the bit oracle
     worst = check_kernel_vs_plain(torch, cr)
@@ -1470,7 +1541,13 @@ def main() -> int:
         "ms": tssd["ms"], "plain_ms": tssd["plain_ms"], "bound_ms": tssd["bound_ms"],
         "bound_by": tssd["bound_by"], "library_ms": None, "library_none": NO_SSD_LIBRARY,
         "shape": "x (2, 512, 32, 64) f32, dA f32, B/C (2, 512, 1, 128) bf16 -> y f32, h "
-                 "(2, 32, 64, 128) f32, chunk 256 (kernel tile 64)",
+                 f"(2, 32, 64, 128) f32, chunk 256 (kernel chunks {SSD_CHUNK})",
+        "shapes": [{k: t[k] for k in ("B", "S", "ms", "plain_ms", "bound_ms", "f32_bound_ms",
+                                      "max_abs_err")} for t in tssd["shapes"]],
+        "route_by_dtype": {"bf16": "wgmma, three launches a call (chunk, state, output "
+                                   "passes), f32 operands split bf16 hi + lo",
+                           "f32": "f32 FMAs on the CUDA cores, one launch a call"},
+        "hgmma_instructions": ssd_hgmma,
         "launches_per_step": mamba_run["launches"]["ssd_scan"] / mamba_run["steps"],
         "launches_serving": {k: serve[MAMBA][k]["launches"]["ssd_scan"]
                              for k in ("generate", "engine")},

@@ -3,69 +3,120 @@
 // Replaces the TPU kernel src/repro/kernels/ssd_scan.py:73 ssd_scan_pallas
 // (pallas_call body _ssd_kernel), which computes the chunked algorithm of
 // src/repro/models/ssm.py:ssd_chunked.  Per (batch, head), x pre-multiplied
-// by dt, dA = dt * A, and per tile of L rows along S with a = cumsum(dA):
+// by dt, dA = dt * A, and per chunk of L rows along S with a = cumsum(dA)
+// over the chunk:
 //
-//   y = (C B^T (.) decay) X + exp(a) (.) (C h^T)     decay[i,j] = exp(a_i - a_j), i >= j
-//   h <- exp(a[L-1]) h + X^T (B (.) exp(a[L-1] - a))
+//   y     = (C B^T (.) decay) X + exp(a) (.) (C h_in^T),  decay[i,j] = exp(a_i - a_j), i >= j
+//   h_out = exp(a[L-1]) h_in + (X (.) tail)^T B,          tail[j] = exp(a[L-1] - a_j)
 //
-// and h (P x N) is written once, after the last tile.  Head h reads group
-// h / (H/G) of B and C by index arithmetic; B and C are never widened to H.
+// with h_in = 0 entering the first chunk, and the last chunk's h_out
+// written as h (P x N).  Head h reads group h / (H/G) of B and C by index
+// arithmetic; B and C are never widened to H.  The chunked algorithm is
+// exact for any chunk length, so the kernels' chunks are their own (128 or
+// 64 rows) whatever `chunk` the caller passes: only rounding differs from
+// the plain version's 256-row chunks.  A ragged last chunk loads as zeros
+// (x = 0 adds nothing, dA = 0 decays by 1), so any S runs.
 //
-// Bound: operations.  At the main path's layer (B=2, S=512, H=32, P=64, G=1,
-// N=128) the least work of any form of the scan is the state update and the
-// readout, one multiply-add each per (row, head, p, n): 4*B*S*H*P*N = 1.07
-// GFLOP over about 20 MB, far above the H100's ridge, so the least time is
-// the f32 operations over the 67 TFLOP/s of the CUDA cores.  The tiles'
-// causal triangles add 2*B*S*(L+1)/2*(G*N + H*P) to that (1.22 GFLOP at
-// L = 64).  This first kernel runs
-// f32 FMAs on the CUDA cores out of shared memory (no tensor cores, no TMA):
-// a right, simple kernel; wgmma is later work.
+// Two kernels, chosen by the dtype code of B and C and by nothing else
+// (neither is a fallback of the other):
 //
-// Design.
-//  - The TPU kernel's sequential chunk axis becomes a loop inside the block:
-//    one block owns one (batch, head) and a slice of PT columns of P, and
-//    walks S in order with its slice of the state, h^T (N x PT f32), in
-//    shared memory.  Each column p of y and of h depends only on column p
-//    of x, so the P slices are independent: at the main path's shape the
-//    grid is (B*H, P/32) = (64, 2) = 128 blocks for 132 SMs.  Each slice
-//    recomputes the decayed scores C B^T (.) decay of its tile.
-//  - The tile along S is the kernel's own: kT = 64 rows, whatever `chunk`
-//    the caller passes.  The chunked algorithm is exact for any chunk
-//    length, so only rounding differs from a 256-row chunk, and a 64-row
-//    tile keeps the scores (64 x 64 f32) and B and C (64 x N each) in
-//    110.6 KB of shared memory at N = 128, where a 256-row chunk's scores
-//    alone would take 256 KiB, more than a block may have (227 KB).  A
-//    ragged last tile is loaded as zeros (x = 0 adds nothing, dA = 0
-//    decays by 1), so any S runs; the wrapper still asks S % chunk == 0,
-//    the TPU kernel's contract.
-//  - Above the diagonal a_i - a_j is hundreds above zero at the model's
-//    dA (A = -1..-32, dt up to 0.1), and its exp is +inf: the mask is a
-//    select BEFORE the exp, never a 0/1 multiply after it (inf * 0 = NaN).
-//  - cumsum(dA) over the tile is one warp's shuffle scan; the decay is exp
-//    of a difference of those sums, which the plain version (256-row
-//    chunks, another order) rounds differently, by about 1e-4 relative
-//    where |a| reaches hundreds.
-//  - Shared-memory rows are padded to a multiple of 4 floats plus 4, so
-//    the 16-byte loads of neighbouring rows fall on distinct banks.
+//  - bf16 (what the bf16 model gives: the main path): the tensor-core
+//    kernel below, three launches a call.
+//  - f32: the CUDA-core kernel (ssd_scan_f32_kernel), one launch a call.
+//    It serves the f32 cross-checks only.
 //
-// The kernel allocates nothing and launches on the caller's stream; the
-// launch error is returned to the caller.
+// Bound.  At the main path's layer (B=2, S=512, H=32, P=64, G=1, N=128) the
+// least work of any form of the scan is the state update and the readout,
+// one multiply-add each per (row, head, p, n): 4*B*S*H*P*N = 1.07 GFLOP,
+// 0.0011 ms on the bf16 tensor cores, against 19.5 MB read once and written
+// once, 0.0058 ms at 3.35 TB/s: bytes bound it, whatever unit runs the
+// operations.  On the f32 CUDA cores alone the same operations take 0.0160
+// ms, which is why the bf16 kernel runs them on wgmma.
+//
+// The bf16 kernel: chunks in parallel, three launches.
+//  1. Chunk pass (ssd_scan_chunk_kernel, one warpgroup a block).  Per
+//     (batch, group, chunk of kL = 128 rows): C B^T once, shared by the
+//     group's heads, written in its accumulator-fragment order (these
+//     blocks, the heaviest, come first).  Per (batch, chunk, head, 64
+//     columns of P): the chunk's local state (X (.) tail)^T B on wgmma,
+//     written to a workspace, and the chunk's decay exp(a[L-1]).
+//  2. State pass (ssd_scan_state_kernel): the recurrence over the chunk
+//     states, h_in[c+1] = exp(a_c[L-1]) h_in[c] + state_c, P x N
+//     elementwise per (batch, head), each chunk's state overwritten in
+//     place by the state entering it; the last one is h.
+//  3. Output pass (ssd_scan_output_kernel, two warpgroups of 64 rows, two
+//     blocks an SM).  Per (batch, chunk, head, 64 columns of P): exp(a) (.)
+//     (C h_in^T) on wgmma, then + (C B^T (.) decay) X on wgmma, each depth
+//     step's A built in registers while the previous step's products run;
+//     written to y.
+//  Why three launches and not one chained scan (each chunk's block waiting
+//  on its predecessor's published state): the chain is serial in the
+//  chunks, a round trip through L2 a chunk (16 at S = 2048), and its blocks
+//  must be resident in chunk order.  The state pass is one elementwise
+//  sweep whose loads do not wait on the recurrence.  The hand-off costs
+//  bytes: one chunk state is P x N f32 = 32 KB a (batch, head), 8.4 MB over
+//  the training shape's 4 chunks of 128 (16.8 MB at B=1, S=2048, 33.5 MB at
+//  B=4, S=1024), written by pass 1, read and rewritten by pass 2, read by
+//  pass 3; 128-row chunks halve it against 64 and fit the training shape's
+//  in the 50 MB L2.  Blocks in flight (pass 1 / 3): 264 / 256 at B=2,
+//  S=512; 1056 / 1024 at B=4, S=1024; 528 / 512 at B=1, S=2048.
+//  Arithmetic: B and C are exact in bf16, x, the decays and h are f32.  So
+//    C B^T        one bf16 wgmma, f32 accumulation (exact up to order);
+//    C h_in^T     C exact, h_in split into bf16 hi = rn(h), lo = rn(h - hi):
+//                 two products;
+//    (X tail)^T B the tail on X (B stays exact), X tail split: two products;
+//    (C B^T (.) decay) X  both f32: each split, three products (hi.hi +
+//                 hi.lo + lo.hi).
+//  One bf16 rounding of an f32 operand is not enough: |cumsum dA| reaches
+//  hundreds at the model's dA, and tests/test_torch_ssm.py emulates both
+//  (split: within the 1e-3 x max hold everywhere; rounded once: not).  The
+//  cumsum (one warp's shuffle scan, the same code in passes 1 and 3), the
+//  decays (expf) and every sum are f32 on the CUDA cores.  The causal mask
+//  is a select BEFORE the exp: above the diagonal a_i - a_j is hundreds
+//  above zero and its exp is +inf, so the argument is set to -inf there and
+//  the exp gives 0 (never inf * 0 = NaN).
+//  Layout: operand tiles are bf16 boxes of [rows][64] swizzled by 128 bytes
+//  (wgmma.cuh), written by the threads themselves (f32 operands are split
+//  on the way in; any N, P and ragged S pad with zeros in shared memory),
+//  then fenced to the async proxy.  C, B and h_in are K-major, X and B as
+//  the right-hand side of a register-A product MN-major; X (.) tail and C
+//  B^T (.) decay are A operands built in registers, the latter from C B^T
+//  stored in the accumulator-fragment order that is also the A layout.
+//  N and P run in boxes of 64: the products over N loop over pairs of
+//  boxes, each pair issued whole (a box past N is zeros, so no branch
+//  splits a wgmma pipeline stage), and the grid runs over P's boxes.  A
+//  block issues all its global loads of a tile before its first store to
+//  shared memory.
+//
+// The f32 kernel (the scan's first design, kept for the f32 cross-checks): one block
+// owns one (batch, head) and a slice of PT columns of P, and walks S in
+// 64-row tiles with its slice of the state, h^T (N x PT f32), in shared
+// memory, f32 FMAs out of shared memory; grid (B*H, P/PT).
+//
+// The kernels allocate nothing (the wrapper passes the bf16 kernel's
+// workspace, ssd_scan_workspace_bytes) and launch on the caller's stream;
+// the first launch error is returned to the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kT = 64;           // rows of a tile along S
-constexpr int kThreads = 256;
-constexpr int kTS = kT + 4;      // row stride of the score tile
 constexpr size_t kMaxSmem = 232448;  // an H100 block's shared-memory limit
 
 // dtype codes shared with the Python wrapper (Bm and Cm)
 enum : int { kF32 = 0, kBF16 = 1 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// ---------------------------------------------------------------------------
+// f32 B/C: the CUDA-core kernel
+
+constexpr int kT = 64;           // rows of a tile along S
+constexpr int kThreads = 256;
+constexpr int kTS = kT + 4;      // row stride of the score tile
 
 __host__ __device__ __forceinline__ int padded_n(int N) { return ((N + 3) & ~3) + 4; }
 
@@ -79,10 +130,10 @@ size_t smem_bytes(int N, int PT) {
   return floats * sizeof(float);
 }
 
-template <typename BC, int PT>
+template <int PT>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dA,
-                const BC* __restrict__ Bm, const BC* __restrict__ Cm,
+ssd_scan_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
+                const float* __restrict__ Bm, const float* __restrict__ Cm,
                 float* __restrict__ y, float* __restrict__ hout,
                 int S, int H, int G, int P, int N) {
   extern __shared__ __align__(16) float smem[];
@@ -114,15 +165,15 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   for (int t0 = 0; t0 < S; t0 += kT) {
     const int rows = min(kT, S - t0);
 
-    // 1. load the tile: C, B (as f32), this block's columns of x, and the
+    // 1. load the tile: C, B, this block's columns of x, and the
     //    cumsum of dA; rows past S are zeros
     for (int i = tid; i < kT * N; i += kThreads) {
       const int r = i / N, n = i % N;
       float cv = 0.f, bv = 0.f;
       if (r < rows) {
         const long long off = ((static_cast<long long>(b) * S + t0 + r) * G + g) * N + n;
-        cv = to_f32(Cm[off]);
-        bv = to_f32(Bm[off]);
+        cv = Cm[off];
+        bv = Bm[off];
       }
       Cs[r * NS + n] = cv;
       Bs[r * NS + n] = bv;
@@ -275,52 +326,581 @@ ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   }
 }
 
-template <typename BC, int PT>
-cudaError_t launch_typed(const float* x, const float* dA, const void* Bm, const void* Cm,
-                         float* y, float* h, int B, int S, int H, int G, int P, int N,
-                         cudaStream_t stream) {
+template <int PT>
+cudaError_t launch_f32_typed(const float* x, const float* dA, const float* Bm, const float* Cm,
+                             float* y, float* h, int B, int S, int H, int G, int P, int N,
+                             cudaStream_t stream) {
   const size_t smem = smem_bytes(N, PT);
   if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(ssd_scan_kernel<BC, PT>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_f32_kernel<PT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(B) * static_cast<unsigned>(H), P / PT);
-  ssd_scan_kernel<BC, PT><<<grid, kThreads, smem, stream>>>(
-      x, dA, static_cast<const BC*>(Bm), static_cast<const BC*>(Cm), y, h, S, H, G, P, N);
+  ssd_scan_f32_kernel<PT><<<grid, kThreads, smem, stream>>>(x, dA, Bm, Cm, y, h, S, H, G, P, N);
   return cudaGetLastError();
 }
 
-template <typename BC>
-cudaError_t launch_bc(const float* x, const float* dA, const void* Bm, const void* Cm,
-                      float* y, float* h, int B, int S, int H, int G, int P, int N,
-                      cudaStream_t stream) {
-  if (P % 32 == 0) return launch_typed<BC, 32>(x, dA, Bm, Cm, y, h, B, S, H, G, P, N, stream);
-  if (P % 16 == 0) return launch_typed<BC, 16>(x, dA, Bm, Cm, y, h, B, S, H, G, P, N, stream);
-  if (P % 8 == 0) return launch_typed<BC, 8>(x, dA, Bm, Cm, y, h, B, S, H, G, P, N, stream);
-  return cudaErrorInvalidValue;
+cudaError_t launch_f32(const float* x, const float* dA, const void* Bm, const void* Cm, float* y,
+                       float* h, int B, int S, int H, int G, int P, int N, cudaStream_t stream) {
+  const float* bf = static_cast<const float*>(Bm);
+  const float* cf = static_cast<const float*>(Cm);
+  if (P % 32 == 0) return launch_f32_typed<32>(x, dA, bf, cf, y, h, B, S, H, G, P, N, stream);
+  if (P % 16 == 0) return launch_f32_typed<16>(x, dA, bf, cf, y, h, B, S, H, G, P, N, stream);
+  return launch_f32_typed<8>(x, dA, bf, cf, y, h, B, S, H, G, P, N, stream);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 B/C: the tensor-core kernel
+
+constexpr int kL = 128;                 // rows of a chunk along S
+constexpr int kBoxBytes = kL * 128;     // a [kL][64] bf16 box
+constexpr int kXS = 68;                 // row stride (floats) of the chunk pass's f32 X tile
+// C B^T of one (batch, group, chunk) in accumulator-fragment order: the
+// 64 x 64 block of rows 0-63 (32 registers a thread) and the 64 x 128 block
+// of rows 64-127 (64 registers), float4 k of thread t at k * 128 + t
+constexpr int kCBFloats = (32 + 64) * 128;
+// chunk pass: two boxes of B (and of C, or the f32 X tile), cumsum, tail
+constexpr size_t kSmemChunk = 1024 + 2 * kBoxBytes + kL * kXS * 4 + 2 * kL * 4;
+// output pass: X hi and lo, two boxes of C, two boxes each of h_in hi and lo
+constexpr size_t kSmemOutput = 1024 + 4 * kBoxBytes + 4 * 64 * 128 + 2 * kL * 4;
+static_assert(2 * kSmemOutput <= kMaxSmem, "two output blocks must fit an H100 SM");
+
+struct Dims {
+  int B, S, H, G, P, N;
+  int nc;  // chunks of kL rows: ceil(S / kL)
+  int np;  // boxes of 64 columns of P: ceil(P / 64)
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
+// a[r] = the sum of dA over rows 0..r of the chunk, rows past `rows` adding
+// 0; by one warp: four rows a lane, then a shuffle scan of the lanes' sums
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dA, long long stride,
+                                             int rows, float* a, int lane) {
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = 4 * lane + k;
+    v[k] = r < rows ? dA[r * stride] : 0.f;
+  }
+  v[1] += v[0];
+  v[2] += v[1];
+  v[3] += v[2];
+  float s = v[3];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, s, o);
+    if (lane >= o) s += t;
+  }
+  float before = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) before = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a[4 * lane + k] = before + v[k];
+}
+
+// a [kRows][64] bf16 box at `dst` (1024-byte aligned, swizzled by 128
+// bytes) from src[r * stride + c] for r < rows, c < cols, zeros elsewhere,
+// by kThr threads.  `vec`: 16-byte loads (src 16-byte aligned, stride and
+// cols multiples of 8), all in flight before the first store.
+template <int kRows, int kThr>
+__device__ __forceinline__ void load_box(uint8_t* dst, const __nv_bfloat16* __restrict__ src,
+                                         long long stride, int rows, int cols, bool vec,
+                                         int tid) {
+  constexpr int kIt = kRows * 8 / kThr;
+  if (vec) {
+    uint4 v[kIt];
+#pragma unroll
+    for (int k = 0; k < kIt; ++k) {
+      const int i = tid + k * kThr, r = i >> 3, c = (i & 7) * 8;
+      v[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows && c < cols) v[k] = *reinterpret_cast<const uint4*>(src + r * stride + c);
+    }
+#pragma unroll
+    for (int k = 0; k < kIt; ++k) {
+      const int i = tid + k * kThr;
+      *reinterpret_cast<uint4*>(dst + sw128(i >> 3, (i & 7) * 8)) = v[k];
+    }
+  } else {
+    for (int i = tid; i < kRows * 64; i += kThr) {
+      const int r = i >> 6, c = i & 63;
+      const __nv_bfloat16 v = r < rows && c < cols ? src[r * stride + c] : __float2bfloat16(0.f);
+      *reinterpret_cast<__nv_bfloat16*>(dst + sw128(r, c)) = v;
+    }
+  }
+}
+
+// f32 values src[r * stride + c] (r < rows, c < cols, zeros elsewhere) split
+// into two [kRows][64] bf16 boxes, hi = rn(v) and lo = rn(v - hi), by kThr
+// threads.  `vec`: 16-byte loads (src 16-byte aligned, stride and cols
+// multiples of 4), all in flight before the first store.
+template <int kRows, int kThr>
+__device__ __forceinline__ void load_split_box(uint8_t* hi, uint8_t* lo,
+                                               const float* __restrict__ src, long long stride,
+                                               int rows, int cols, bool vec, int tid) {
+  constexpr int kIt = kRows * 8 / kThr;
+  float v[kIt][8];
+#pragma unroll
+  for (int k = 0; k < kIt; ++k) {
+    const int i = tid + k * kThr, r = i >> 3, c = (i & 7) * 8;
+    if (vec) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < rows && c + 4 * h < cols)
+          f = *reinterpret_cast<const float4*>(src + r * stride + c + 4 * h);
+        v[k][4 * h] = f.x;
+        v[k][4 * h + 1] = f.y;
+        v[k][4 * h + 2] = f.z;
+        v[k][4 * h + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[k][e] = r < rows && c + e < cols ? src[r * stride + c + e] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kIt; ++k) {
+    const int i = tid + k * kThr;
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ph[e] = pack_bf16(v[k][2 * e], v[k][2 * e + 1]);
+      pl[e] = pack_bf16(v[k][2 * e] - __uint_as_float(ph[e] << 16),
+                        v[k][2 * e + 1] - __uint_as_float(ph[e] & 0xFFFF0000u));
+    }
+    const uint32_t off = sw128(i >> 3, (i & 7) * 8);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(ph[0], ph[1], ph[2], ph[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(pl[0], pl[1], pl[2], pl[3]);
+  }
+}
+
+// block index -> (b, c, h, ps), heads of one chunk adjacent (their B and C
+// tiles shared through L2)
+struct ChunkHead {
+  int b, c, h, ps;
+  __device__ ChunkHead(int bid, const Dims& d)
+      : b(bid / (d.np * d.H * d.nc)), c((bid / (d.np * d.H)) % d.nc), h((bid / d.np) % d.H),
+        ps(bid % d.np) {}
+};
+
+// 1. the chunk pass: blocks [0, B*nc*G) C B^T (the heaviest, so first), then
+//    B*nc*H*np blocks the local states.  One warpgroup a block; N in pairs
+//    of 64-column boxes, a pair's products issued whole (a box past N is
+//    zeros), so no branch splits a wgmma pipeline stage.
+__global__ void __launch_bounds__(128)
+ssd_scan_chunk_kernel(const float* __restrict__ x, const float* __restrict__ dA,
+                      const __nv_bfloat16* __restrict__ Bm, const __nv_bfloat16* __restrict__ Cm,
+                      float* __restrict__ states, float* __restrict__ cb,
+                      float* __restrict__ cdecay, Dims d, int vec_x, int vec_bc) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* Bs = base;                                      // [2][kL][64] boxes of B
+  uint8_t* Cs = base + 2 * kBoxBytes;                      // [2][kL][64] boxes of C
+  float* Xs = reinterpret_cast<float*>(Cs);                // [kL][kXS] X (over Cs)
+  float* a = reinterpret_cast<float*>(Cs + kL * kXS * 4);  // [kL] cumsum of dA
+  float* tail = a + kL;                                    // [kL] exp(a[kL-1] - a)
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, q = lane % 4;
+  const int rA = 16 * warp + lane / 4, rB = rA + 8;  // this thread's accumulator rows
+  const int n_cb = d.B * d.nc * d.G;
+  const long long bc_stride = static_cast<long long>(d.G) * d.N;  // between rows of B, C
+
+  if (static_cast<int>(blockIdx.x) < n_cb) {
+    // C B^T of (b, g, c): rows 0-63 against B rows 0-63 (m64n64), rows
+    // 64-127 against B rows 0-127 (m64n128)
+    const int i = blockIdx.x;
+    const int g = i % d.G, c = (i / d.G) % d.nc, b = i / (d.G * d.nc);
+    const int rows = min(kL, d.S - c * kL);
+    const long long off = ((static_cast<long long>(b) * d.S + c * kL) * d.G + g) * d.N;
+    float acc0[32], acc1[64];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc0[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 64; ++k) acc1[k] = 0.f;
+    for (int n0 = 0; n0 < d.N; n0 += 128) {
+      if (n0) __syncthreads();  // the previous boxes are read
+      for (int e = 0; e < 2; ++e) {
+        const int cols = min(64, d.N - n0 - 64 * e);
+        load_box<kL, 128>(Cs + e * kBoxBytes, Cm + off + n0 + 64 * e, bc_stride, rows, cols,
+                          vec_bc, tid);
+        load_box<kL, 128>(Bs + e * kBoxBytes, Bm + off + n0 + 64 * e, bc_stride, rows, cols,
+                          vec_bc, tid);
+      }
+      fence_proxy_async();
+      __syncthreads();
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int o = (t >> 2) * kBoxBytes + 32 * (t & 3);
+        const uint64_t db = smem_desc(Bs + o, 128, 16);
+        wgmma_ss(acc0, smem_desc(Cs + o, 128, 16), db, 1);
+        wgmma_ss(acc1, smem_desc(Cs + o + 64 * 128, 128, 16), db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc0);
+      fence_regs(acc1);
+    }
+    float4* out = reinterpret_cast<float4*>(
+        cb + (static_cast<long long>(b * d.G + g) * d.nc + c) * kCBFloats);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      out[k * 128 + tid] =
+          make_float4(acc0[4 * k], acc0[4 * k + 1], acc0[4 * k + 2], acc0[4 * k + 3]);
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      out[(8 + k) * 128 + tid] =
+          make_float4(acc1[4 * k], acc1[4 * k + 1], acc1[4 * k + 2], acc1[4 * k + 3]);
+    return;
+  }
+
+  // the local state of (b, c, h), rows p0 .. p0 + 63 of P
+  const ChunkHead w(blockIdx.x - n_cb, d);
+  const int g = w.h / (d.H / d.G);
+  const int rows = min(kL, d.S - w.c * kL), p0 = 64 * w.ps, pv = min(64, d.P - p0);
+  const long long row0 = static_cast<long long>(w.b) * d.S + w.c * kL;  // in (B*S)
+  const __nv_bfloat16* bs = Bm + (row0 * d.G + g) * d.N;
+  if (warp == 0) chunk_cumsum(dA + row0 * d.H + w.h, d.H, rows, a, lane);
+  const float* xs = x + (row0 * d.H + w.h) * d.P + p0;
+  const long long x_stride = static_cast<long long>(d.H) * d.P;
+  if (vec_x) {
+    constexpr int kIt = kL * 16 / 128;
+    float4 v[kIt];
+#pragma unroll
+    for (int k = 0; k < kIt; ++k) {
+      const int i = tid + 128 * k, r = i >> 4, c = (i & 15) * 4;
+      v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows && c < pv) v[k] = *reinterpret_cast<const float4*>(xs + r * x_stride + c);
+    }
+#pragma unroll
+    for (int k = 0; k < kIt; ++k) {
+      const int i = tid + 128 * k;
+      *reinterpret_cast<float4*>(Xs + (i >> 4) * kXS + (i & 15) * 4) = v[k];
+    }
+  } else {
+    for (int i = tid; i < kL * 64; i += 128) {
+      const int r = i >> 6, c = i & 63;
+      Xs[r * kXS + c] = r < rows && c < pv ? xs[r * x_stride + c] : 0.f;
+    }
+  }
+  // the first two boxes of B (the wgmma reads them after the barrier below)
+  for (int e = 0; e < 2; ++e)
+    load_box<kL, 128>(Bs + e * kBoxBytes, bs + 64 * e, bc_stride, rows, min(64, d.N - 64 * e),
+                      vec_bc, tid);
+  fence_proxy_async();
+  __syncthreads();
+  tail[tid] = expf(a[kL - 1] - a[tid]);  // 128 threads, kL rows
+  if (tid == 0 && w.ps == 0)
+    cdecay[(static_cast<long long>(w.b) * d.H + w.h) * d.nc + w.c] = expf(a[kL - 1]);
+  __syncthreads();
+
+  // A = (X (.) tail)^T, rows p and depth j, split into bf16 hi + lo, in the
+  // register-A layout: register jj of depth step kk holds rows rA (jj even)
+  // or rB (odd), columns 16 kk + 8 (jj / 2) + 2 q and + 1.  Row stride kXS
+  // puts a warp's 32 reads on 32 banks.
+  uint32_t ahi[kL / 16][4], alo[kL / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kL / 16; ++kk)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int p = jj & 1 ? rB : rA, j = 16 * kk + 8 * (jj >> 1) + 2 * q;
+      const float v0 = Xs[j * kXS + p] * tail[j], v1 = Xs[(j + 1) * kXS + p] * tail[j + 1];
+      const uint32_t hi = pack_bf16(v0, v1);
+      ahi[kk][jj] = hi;
+      alo[kk][jj] =
+          pack_bf16(v0 - __uint_as_float(hi << 16), v1 - __uint_as_float(hi & 0xFFFF0000u));
+    }
+
+  // state[p][n] = sum_j A[p][j] B[j][n], two boxes of N at a time (B MN-major)
+  float* st = states + ((static_cast<long long>(w.b * d.nc + w.c) * d.H + w.h) * d.P + p0) * d.N;
+  for (int n0 = 0; n0 < d.N; n0 += 128) {
+    if (n0) {
+      __syncthreads();  // the previous boxes are read
+      for (int e = 0; e < 2; ++e)
+        load_box<kL, 128>(Bs + e * kBoxBytes, bs + n0 + 64 * e, bc_stride, rows,
+                          min(64, d.N - n0 - 64 * e), vec_bc, tid);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    float acc[2][32];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int k = 0; k < 32; ++k) acc[e][k] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int kk = 0; kk < kL / 16; ++kk) {
+        const uint64_t db = smem_desc(Bs + e * kBoxBytes + kk * 16 * 128, 128, kL * 128);
+        wgmma_rs(acc[e], ahi[kk], db);
+        wgmma_rs(acc[e], alo[kk], db);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+#pragma unroll
+    for (int kk = 0; kk < kL / 16; ++kk) {
+      fence_regs(ahi[kk]);
+      fence_regs(alo[kk]);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const int p = (k >> 1) & 1 ? rB : rA;
+        const int n = n0 + 64 * e + 8 * (k / 4) + (k & 1) + 2 * q;
+        if (p < pv && n < d.N) st[p * d.N + n] = acc[e][k];
+      }
+  }
+}
+
+// 2. the state pass: one thread per (b, h, p, n), in order over the chunks;
+//    each chunk's slot gets the state entering it, h the last state
+__global__ void __launch_bounds__(256)
+ssd_scan_state_kernel(float* __restrict__ states, const float* __restrict__ cdecay,
+                      float* __restrict__ hout, Dims d) {
+  const long long pn_count = static_cast<long long>(d.P) * d.N;
+  const long long e = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= d.B * d.H * pn_count) return;
+  const long long bh = e / pn_count, pn = e % pn_count;
+  const int b = static_cast<int>(bh / d.H), h = static_cast<int>(bh % d.H);
+  const long long step = d.H * pn_count;  // from one chunk's state to the next
+  float* st = states + (static_cast<long long>(b) * d.nc * d.H + h) * pn_count + pn;
+  const float* dec = cdecay + bh * d.nc;
+  float hv = st[0];  // the state after chunk 0 (entering it: 0)
+  float next = d.nc > 1 ? st[step] : 0.f;
+  for (int c = 1; c < d.nc; ++c) {
+    const float s = next;
+    if (c + 1 < d.nc) next = st[(c + 1) * step];  // loaded ahead of the recurrence
+    st[c * step] = hv;
+    hv = fmaf(hv, dec[c], s);
+  }
+  hout[e] = hv;
+}
+
+// + (C B^T (.) decay) X for a warpgroup whose rows iA, iB need depth steps
+// 0 .. KS-1 (columns 0 .. 16 KS - 1 of the chunk): A built in registers from
+// C B^T in fragment order (`cbf`: this thread's float4 0), the decay by
+// select then exp, split into bf16 hi + lo; three products a step.  Step
+// kk's A is built while step kk - 1's products run (two register buffers).
+template <int KS>
+__device__ __forceinline__ void intra_chunk(float (&acc)[32], const float4* __restrict__ cbf,
+                                            const float* a, const uint8_t* Xhi,
+                                            const uint8_t* Xlo, int iA, int iB, int q) {
+  const float neg_inf = __int_as_float(0xff800000);
+  const float aA = a[iA], aB = a[iB];
+  uint32_t ahi[2][4] = {}, alo[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t(&hi4)[4] = ahi[kk & 1];
+    uint32_t(&lo4)[4] = alo[kk & 1];
+    const float4 u = cbf[(2 * kk) * 128], w = cbf[(2 * kk + 1) * 128];
+    const float v[8] = {u.x, u.y, u.z, u.w, w.x, w.y, w.z, w.w};  // registers 8 kk .. 8 kk + 7
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int i = jj & 1 ? iB : iA, j = 16 * kk + 8 * (jj >> 1) + 2 * q;
+      const float ai = jj & 1 ? aB : aA;
+      const float d0 = i >= j ? ai - a[j] : neg_inf;  // select, then exp
+      const float d1 = i >= j + 1 ? ai - a[j + 1] : neg_inf;
+      const float m0 = v[2 * jj] * expf(d0), m1 = v[2 * jj + 1] * expf(d1);
+      const uint32_t hi = pack_bf16(m0, m1);
+      hi4[jj] = hi;
+      lo4[jj] = pack_bf16(m0 - __uint_as_float(hi << 16), m1 - __uint_as_float(hi & 0xFFFF0000u));
+    }
+    wgmma_fence();
+    const uint64_t dh = smem_desc(Xhi + kk * 16 * 128, 128, kL * 128);
+    const uint64_t dl = smem_desc(Xlo + kk * 16 * 128, 128, kL * 128);
+    wgmma_rs(acc, hi4, dh);
+    wgmma_rs(acc, hi4, dl);
+    wgmma_rs(acc, lo4, dh);
+    wgmma_commit();
+    // step kk - 1's products are done: its buffer may be rebuilt
+    wgmma_wait<1>();
+    fence_regs(ahi[(kk + 1) & 1]);
+    fence_regs(alo[(kk + 1) & 1]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(ahi[(KS - 1) & 1]);
+  fence_regs(alo[(KS - 1) & 1]);
+}
+
+// 3. the output pass: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the
+//    chunk; N in pairs of 64-column boxes
+__global__ void __launch_bounds__(256, 2)
+ssd_scan_output_kernel(const float* __restrict__ x, const float* __restrict__ dA,
+                       const __nv_bfloat16* __restrict__ Cm, const float* __restrict__ states,
+                       const float* __restrict__ cb, float* __restrict__ y, Dims d, int vec_x,
+                       int vec_bc, int vec_h) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* Xhi = base;                 // [kL][64] X hi, MN-major
+  uint8_t* Xlo = Xhi + kBoxBytes;      // [kL][64] X lo
+  uint8_t* Cs = Xlo + kBoxBytes;       // [2][kL][64] boxes of C, K-major
+  uint8_t* Hhi = Cs + 2 * kBoxBytes;   // [2][64][64] boxes of h_in hi, K-major (rows p)
+  uint8_t* Hlo = Hhi + 2 * 64 * 128;   // [2][64][64] h_in lo
+  float* a = reinterpret_cast<float*>(Hlo + 2 * 64 * 128);  // [kL] cumsum of dA
+  float* ea = a + kL;                                       // [kL] exp(a)
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int q = lane % 4, iA = 64 * wg + 16 * warp + lane / 4, iB = iA + 8;  // chunk rows
+  const ChunkHead w(blockIdx.x, d);
+  const int g = w.h / (d.H / d.G);
+  const int rows = min(kL, d.S - w.c * kL), p0 = 64 * w.ps, pv = min(64, d.P - p0);
+  const long long row0 = static_cast<long long>(w.b) * d.S + w.c * kL;  // in (B*S)
+  const long long x_stride = static_cast<long long>(d.H) * d.P;
+  const __nv_bfloat16* cs = Cm + (row0 * d.G + g) * d.N;
+  const float* hin =
+      states + ((static_cast<long long>(w.b * d.nc + w.c) * d.H + w.h) * d.P + p0) * d.N;
+  // C and h_in boxes n0 and n0 + 64 (no state enters the first chunk)
+  auto load_pair = [&](int n0) {
+    for (int e = 0; e < 2; ++e) {
+      const int cols = min(64, d.N - n0 - 64 * e);
+      load_box<kL, 256>(Cs + e * kBoxBytes, cs + n0 + 64 * e, static_cast<long long>(d.G) * d.N,
+                        rows, cols, vec_bc, tid);
+      load_split_box<64, 256>(Hhi + e * 64 * 128, Hlo + e * 64 * 128, hin + n0 + 64 * e, d.N, pv,
+                              cols, vec_h, tid);
+    }
+  };
+
+  if (tid < 32) chunk_cumsum(dA + row0 * d.H + w.h, d.H, rows, a, lane);
+  load_split_box<kL, 256>(Xhi, Xlo, x + (row0 * d.H + w.h) * d.P + p0, x_stride, rows, pv,
+                          vec_x, tid);
+  if (w.c > 0) load_pair(0);
+  fence_proxy_async();
+  __syncthreads();
+  if (tid < kL) ea[tid] = expf(a[tid]);
+
+  // exp(a) (.) (C h_in^T)
+  float acc[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+  if (w.c > 0) {
+    for (int n0 = 0; n0 < d.N; n0 += 128) {
+      if (n0) {
+        __syncthreads();  // the previous boxes are read
+        load_pair(n0);
+        fence_proxy_async();
+        __syncthreads();
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {  // a box past N is zeros
+        const int e = t >> 2, o = 32 * (t & 3);
+        const uint64_t dc = smem_desc(Cs + e * kBoxBytes + 64 * wg * 128 + o, 128, 16);
+        wgmma_ss(acc, dc, smem_desc(Hhi + e * 64 * 128 + o, 128, 16), 1);
+        wgmma_ss(acc, dc, smem_desc(Hlo + e * 64 * 128 + o, 128, 16), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+  }
+  __syncthreads();  // ea
+#pragma unroll
+  for (int k = 0; k < 32; ++k) acc[k] *= ea[(k >> 1) & 1 ? iB : iA];
+
+  // + (C B^T (.) decay) X: rows 0-63 need columns 0-63, rows 64-127 all
+  const float4* cbf = reinterpret_cast<const float4*>(
+                          cb + (static_cast<long long>(w.b * d.G + g) * d.nc + w.c) * kCBFloats) +
+                      (wg ? 8 * 128 : 0) + tid % 128;
+  if (wg == 0)
+    intra_chunk<kL / 32>(acc, cbf, a, Xhi, Xlo, iA, iB, q);
+  else
+    intra_chunk<kL / 16>(acc, cbf, a, Xhi, Xlo, iA, iB, q);
+
+  float* yo = y + (row0 * d.H + w.h) * d.P + p0;
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const int i = (k >> 1) & 1 ? iB : iA, p = 8 * (k / 4) + (k & 1) + 2 * q;
+    if (i < rows && p < pv) yo[i * x_stride + p] = acc[k];
+  }
+}
+
+Dims dims_of(int B, int S, int H, int G, int P, int N) {
+  return Dims{B, S, H, G, P, N, (S + kL - 1) / kL, (P + 63) / 64};
+}
+
+// the workspace: the chunk states (B, nc, H, P, N), C B^T (B, G, nc,
+// kCBFloats), the chunk decays (B, H, nc), all f32
+size_t workspace_floats(const Dims& d) {
+  return static_cast<size_t>(d.B) * d.nc * d.H * d.P * d.N +
+         static_cast<size_t>(d.B) * d.G * d.nc * kCBFloats + static_cast<size_t>(d.B) * d.H * d.nc;
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+cudaError_t launch_bf16(const float* x, const float* dA, const void* Bm, const void* Cm, float* y,
+                        float* h, void* workspace, int B, int S, int H, int G, int P, int N,
+                        cudaStream_t stream) {
+  const Dims d = dims_of(B, S, H, G, P, N);
+  if (!aligned16(workspace)) return cudaErrorInvalidValue;
+  float* states = static_cast<float*>(workspace);
+  float* cb = states + static_cast<size_t>(B) * d.nc * H * P * N;
+  float* cdecay = cb + static_cast<size_t>(B) * G * d.nc * kCBFloats;
+  const auto* bm = static_cast<const __nv_bfloat16*>(Bm);
+  const auto* cm = static_cast<const __nv_bfloat16*>(Cm);
+  const int vec_x = aligned16(x);
+  const int vec_bc = N % 8 == 0 && aligned16(Bm) && aligned16(Cm);
+  const int vec_h = N % 4 == 0;
+  const long long n1 = static_cast<long long>(B) * d.nc * (G + static_cast<long long>(H) * d.np);
+  const long long n2 = (static_cast<long long>(B) * H * P * N + 255) / 256;
+  const long long n3 = static_cast<long long>(B) * d.nc * H * d.np;
+  if (n1 > 0x7fffffffLL || n2 > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(ssd_scan_chunk_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemChunk));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ssd_scan_output_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemOutput));
+  if (err != cudaSuccess) return err;
+  ssd_scan_chunk_kernel<<<static_cast<unsigned>(n1), 128, kSmemChunk, stream>>>(
+      x, dA, bm, cm, states, cb, cdecay, d, vec_x, vec_bc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_scan_state_kernel<<<static_cast<unsigned>(n2), 256, 0, stream>>>(states, cdecay, h, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_scan_output_kernel<<<static_cast<unsigned>(n3), 256, kSmemOutput, stream>>>(
+      x, dA, cm, states, cb, y, d, vec_x, vec_bc, vec_h);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
+// Bytes of the workspace ssd_scan_launch needs for these shapes and B/C
+// dtype code (0 for f32 B/C).
+long long ssd_scan_workspace_bytes(int B, int S, int H, int G, int P, int N, int bc_code) {
+  if (bc_code != kBF16 || B < 1 || S < 1 || H < 1 || G < 1 || P < 1 || N < 1) return 0;
+  return static_cast<long long>(workspace_floats(dims_of(B, S, H, G, P, N)) * sizeof(float));
+}
+
 // x (B,S,H,P) f32, dA (B,S,H) f32, Bm / Cm (B,S,G,N) of dtype bc_code, all
 // contiguous -> y (B,S,H,P) f32, h (B,H,P,N) f32.  P must be a multiple of
-// 8 and H of G.  Returns the cudaError_t of the launch (0 on success).
+// 8 and H of G.  bf16 B/C runs the tensor-core kernel (three launches) in
+// `workspace` (16-byte aligned, ssd_scan_workspace_bytes), f32 the CUDA-core
+// kernel (one launch).  Returns the first cudaError_t of the launches (0 on
+// success).
 int ssd_scan_launch(const void* x, const void* dA, const void* Bm, const void* Cm, void* y,
-                    void* h, int B, int S, int H, int G, int P, int N, int bc_code,
-                    void* stream) {
-  if (B < 1 || S < 1 || H < 1 || G < 1 || P < 1 || N < 1 || H % G != 0)
+                    void* h, void* workspace, int B, int S, int H, int G, int P, int N,
+                    int bc_code, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || G < 1 || P < 1 || N < 1 || H % G != 0 || P % 8 != 0)
     return cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const float* af = static_cast<const float*>(dA);
   float* yf = static_cast<float*>(y);
   float* hf = static_cast<float*>(h);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc_code == kF32) return launch_bc<float>(xf, af, Bm, Cm, yf, hf, B, S, H, G, P, N, s);
+  if (bc_code == kF32) return launch_f32(xf, af, Bm, Cm, yf, hf, B, S, H, G, P, N, s);
   if (bc_code == kBF16)
-    return launch_bc<__nv_bfloat16>(xf, af, Bm, Cm, yf, hf, B, S, H, G, P, N, s);
+    return launch_bf16(xf, af, Bm, Cm, yf, hf, workspace, B, S, H, G, P, N, s);
   return cudaErrorInvalidValue;
 }
 

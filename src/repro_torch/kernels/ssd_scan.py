@@ -19,7 +19,9 @@ Layouts are the JAX package's: x (B,S,H,P), dA (B,S,H), Bm and Cm
   ``csrc/ssd_scan.cu`` (header there: its design and what bounds it) on a
   CUDA tensor, counted in ``ssd_scan.launches``; on a CPU tensor it runs the
   plain version.  There is no fallback between the two: a CUDA tensor
-  launches the kernel or raises.
+  launches the kernel or raises.  bf16 B and C (the bf16 model's) run the
+  tensor-core kernel, three launches a call; f32 B and C the CUDA-core
+  kernel, one launch a call.
 - :class:`SSDScanFn` makes the kernel differentiable.  The Pallas kernel
   has no VJP and the JAX trainer differentiates the pure-jnp
   ``ssd_chunked``, so the backward recomputes the plain version from the
@@ -115,8 +117,11 @@ def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
         lib = library("ssd_scan")
-        lib.ssd_scan_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.ssd_scan_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ssd_scan_launch.restype = ctypes.c_int
+        lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 7
+        lib.ssd_scan_workspace_bytes.restype = ctypes.c_longlong
         _bound = lib
     return _bound
 
@@ -145,11 +150,15 @@ def ssd_scan(
     (y (B,S,H,P) f32, h (B,H,P,N) f32).
 
     ``chunk`` must divide S, the contract of the TPU kernel and of
-    :func:`ssd_scan_torch`.  The CUDA kernel walks S in tiles of its own (64
-    rows) whatever ``chunk`` is: the chunked algorithm is exact for any
-    chunk length, so the two differ only in rounding.  A CPU tensor runs the
-    plain version; a CUDA tensor launches the kernel (counted in
-    ``ssd_scan.launches``) or raises.  No autograd: see :class:`SSDScanFn`."""
+    :func:`ssd_scan_torch`.  The CUDA kernels cut S into chunks of their own
+    (128 rows for bf16 B/C, 64 for f32) whatever ``chunk`` is: the chunked
+    algorithm is exact for any chunk length, so the two differ only in
+    rounding.  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises.  The dtype of B and C picks the kernel: bf16 the
+    tensor-core kernel (three launches: chunk pass, state pass, output pass,
+    in a workspace allocated here), f32 the CUDA-core kernel (one launch).
+    ``ssd_scan.launches`` counts calls that launched.  No autograd: see
+    :class:`SSDScanFn`."""
     B, S, H, P, G, N = _check(x, dA, Bm, Cm, chunk)
     devices = {t.device for t in (x, dA, Bm, Cm)}
     if len(devices) != 1:
@@ -166,14 +175,17 @@ def ssd_scan(
         raise ValueError(f"the kernel tiles P by 8, 16 or 32; P={P} is not a multiple of 8")
     if not all(t.is_contiguous() for t in (x, dA, Bm, Cm)):
         raise ValueError("x, dA, Bm and Cm must be contiguous")
+    code = _CODES[Bm.dtype]
     y = torch.empty((B, S, H, P), dtype=torch.float32, device=x.device)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     lib = _lib()
+    ws = torch.empty(lib.ssd_scan_workspace_bytes(B, S, H, G, P, N, code), dtype=torch.uint8,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_launch(
             x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), h.data_ptr(),
-            B, S, H, G, P, N, _CODES[Bm.dtype], stream,
+            ws.data_ptr(), B, S, H, G, P, N, code, stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError_t {err}")
@@ -181,7 +193,7 @@ def ssd_scan(
     return y, h
 
 
-ssd_scan.launches = 0  # kernel launches; the plain CPU version never counts
+ssd_scan.launches = 0  # calls that launched a kernel; the plain CPU version never counts
 
 
 class SSDScanFn(torch.autograd.Function):

@@ -268,6 +268,110 @@ def test_cuda_ssd_scan_rejects_what_it_does_not_take(cuda_device):
         ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dA, Bm, Cm, 32)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [384, 421], ids=["3-chunks", "ragged-4-chunks"])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_cuda_ssd_scan_groups_share_scores_across_chunks(cuda_device, G, S):
+    """H = 8 heads over G groups, so each group's C B^T (computed once per
+    batch, group and 128-row chunk) serves 8 / G heads; S spans 3 chunks, or
+    4 with a ragged last one (421 = 3 x 128 + 37).  P = 64, N = 128 as the
+    model's, the draws of tests/test_kernels.py.  Hold: rtol 1e-3 over atol
+    1e-4 x max|plain|.  The split bf16 operands keep each f32 value to
+    2^-17, so the error grows with the sums (tens at N = 128), not with each
+    output; the CPU emulation of the scheme at these very inputs holds the
+    same (tests/test_torch_ssm.py).  A wrong group, chunk or pad is off by
+    O(max)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+
+    x, dA, Bm, Cm = _ssd_inputs(2, S, 8, G, 64, 128, torch.bfloat16, cuda_device, S + G)
+    y, h = ssd_scan(x, dA, Bm, Cm, S)
+    torch.cuda.synchronize()
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, S)
+    torch.testing.assert_close(y, py, atol=1e-4 * float(py.abs().max()), rtol=1e-3)
+    torch.testing.assert_close(h, ph, atol=1e-4 * float(ph.abs().max()), rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_longest_prompt_matches_plain(cuda_device):
+    """The engine's longest prompt, B=1, S=2048 (16 chunks of 128), at the
+    full mamba2 layer with the model's dA and bf16 B/C: finite, and within
+    1e-3 of max|plain| for y and h."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+
+    x, dA, Bm, Cm = _ssd_inputs(1, 2048, 32, 1, 64, 128, torch.bfloat16, cuda_device, 4,
+                                model_dA=True)
+    y, h = ssd_scan(x, dA, Bm, Cm, 256)
+    torch.cuda.synchronize()
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, 256)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert float((y - py).abs().max()) <= 1e-3 * float(py.abs().max())
+    assert float((h - ph).abs().max()) <= 1e-3 * float(ph.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,P,N", [(70, 8, 5), (200, 16, 100), (300, 72, 200)])
+def test_cuda_ssd_scan_bf16_pads_any_state_and_head_size(cuda_device, S, P, N):
+    """bf16 B/C at sizes off the model's: N odd (5: every load element by
+    element), N = 100 (not a multiple of 8: B and C element by element, the
+    state's boxes by 16 bytes) and 200 (four boxes of 64, the last ragged),
+    P = 72 (two boxes of 64 columns of P, the second of 8); padded with
+    zeros in shared memory.  atol 1e-4 / rtol 1e-3 as the JAX test."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+
+    x, dA, Bm, Cm = _ssd_inputs(2, S, 4, 2, P, N, torch.bfloat16, cuda_device, N)
+    y, h = ssd_scan(x, dA, Bm, Cm, S)
+    torch.cuda.synchronize()
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, S)
+    torch.testing.assert_close(y, py, atol=1e-4, rtol=1e-3)
+    torch.testing.assert_close(h, ph, atol=1e-4, rtol=1e-3)
+
+
+def _device_kernels(fn) -> list[str]:
+    """Names of the device kernels that ``fn()`` ran, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        try:
+            fn()
+        finally:
+            torch.cuda.synchronize()
+    return [ev.key for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+
+
+_BF16_KERNELS = {"ssd_scan_chunk_kernel", "ssd_scan_state_kernel", "ssd_scan_output_kernel"}
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_dispatches_on_the_dtype_alone(cuda_device):
+    """bf16 B/C runs the tensor-core kernel's three launches and not the
+    CUDA-core kernel; f32 B/C the CUDA-core kernel alone; a launch the C
+    entry refuses (f32 at N = 512: its tiles exceed a block's shared
+    memory) raises and runs neither.  One wrapper call counts one."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    def ran(names):
+        return {k for k in _BF16_KERNELS | {"ssd_scan_f32_kernel"} if any(k in n for n in names)}
+
+    for bc, want in ((torch.bfloat16, _BF16_KERNELS), (torch.float32, {"ssd_scan_f32_kernel"})):
+        x, dA, Bm, Cm = _ssd_inputs(1, 256, 4, 1, 64, 128, bc, cuda_device, 2)
+        before = ssd_scan.launches
+        names = _device_kernels(lambda: ssd_scan(x, dA, Bm, Cm, 128))
+        assert ran(names) == want, names
+        assert ssd_scan.launches == before + 1
+    x, dA, Bm, Cm = _ssd_inputs(1, 64, 2, 1, 64, 512, torch.float32, cuda_device, 2)
+    before = ssd_scan.launches
+
+    def refused():
+        with pytest.raises(RuntimeError, match="ssd_scan launch failed"):
+            ssd_scan(x, dA, Bm, Cm, 64)
+
+    names = _device_kernels(refused)
+    assert ran(names) == set(), names
+    assert ssd_scan.launches == before
+
+
 # -- flash attention ---------------------------------------------------------
 
 # (atol, rtol) of the JAX sweep's shapes: tests/test_kernels.py:123

@@ -28,7 +28,8 @@ from repro_torch.optim.adam import adamw_init, adamw_update
 
 torch.set_num_threads(2)
 
-ARCHS = ["smollm-360m", "llama3.2-1b", "mamba2-370m"]
+# chatglm3-6b: half-rotary heads (rotary_fraction 0.5) and QKV bias; qwen2.5-14b: QKV bias
+ARCHS = ["smollm-360m", "llama3.2-1b", "mamba2-370m", "chatglm3-6b", "qwen2.5-14b"]
 
 
 def _batch(cfg, B=3, S=16, seed=0):

@@ -214,3 +214,104 @@ def test_ops_ssd_scan_dispatch_on_cpu():
         ssd_scan(x, dA, Bm, Cm, 7)
     with pytest.raises(ValueError, match="shapes disagree"):
         ssd_scan(x, dA[:, :16], Bm, Cm, 8)
+
+
+def _emulate_tensor_core_ssd(x, dA, Bm, Cm, scheme, L=128):
+    """The bf16 CUDA kernel's arithmetic (csrc/ssd_scan.cu) in PyTorch: chunks
+    of L rows, a = cumsum(dA) over each; C B^T from the bf16 B and C (exact
+    products, f32 sums); the local state (X tail)^T B, the readout C h_in^T
+    and the intra-chunk (C B^T (.) decay) X with each f32 operand (X tail,
+    h_in, C B^T (.) decay, X) split into bf16 hi + lo of the remainder
+    (``"split"``: two products for the first two, hi.hi + hi.lo + lo.hi for
+    the third) or rounded once to bf16 (``"bf16_once"``); the decays, the
+    recurrence over the chunks and every sum in f32."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // L)
+    x, dA, Bm, Cm = (torch.nn.functional.pad(t.to(f32), (0, 0) * (t.dim() - 2) + (0, nc * L - S))
+                     for t in (x, dA, Bm, Cm))
+
+    def parts(t):
+        hi = t.to(bf16).to(f32)
+        return [hi, (t - hi).to(bf16).to(f32)] if scheme == "split" else [hi]
+
+    xc = x.reshape(B, nc, L, H, P)
+    a = torch.cumsum(dA.reshape(B, nc, L, H), dim=2).permute(0, 1, 3, 2)  # (B,nc,H,L)
+    Bg, Cg = Bm.reshape(B, nc, L, G, N), Cm.reshape(B, nc, L, G, N)
+    CB = torch.einsum("bclgn,bcsgn->bcgls", Cg, Bg).repeat_interleave(H // G, dim=2)
+    tril = torch.ones(L, L, dtype=torch.bool).tril()
+    diff = (a[..., :, None] - a[..., None, :]).masked_fill(~tril, float("-inf"))  # select, exp
+    Ap, Xp = parts(CB * torch.exp(diff)), parts(xc)
+    pairs = [(0, 0), (0, 1), (1, 0)] if scheme == "split" else [(0, 0)]
+    y = sum(torch.einsum("bchls,bcshp->bclhp", Ap[i], Xp[j]) for i, j in pairs)
+    tail = torch.exp(a[..., -1:] - a).permute(0, 1, 3, 2)[..., None]
+    Bh, Ch = Bg.repeat_interleave(H // G, dim=3), Cg.repeat_interleave(H // G, dim=3)
+    states = sum(torch.einsum("bclhp,bclhn->bchpn", t, Bh) for t in parts(xc * tail))
+    decay = torch.exp(a[..., -1])  # (B,nc,H)
+    h = torch.zeros(B, H, P, N)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    h_in = torch.stack(h_in, dim=1)
+    y_off = sum(torch.einsum("bclhn,bchpn->bclhp", Ch, t) for t in parts(h_in))
+    y = y + y_off * torch.exp(a).permute(0, 1, 3, 2)[..., None]
+    return y.reshape(B, nc * L, H, P)[:, :S], h
+
+
+@pytest.mark.parametrize("scheme,within", [("split", True), ("bf16_once", False)])
+def test_tensor_core_precision_scheme_holds_the_full_layer(scheme, within):
+    """The bf16 SSD kernel's precision scheme against the plain version
+    (chunk 256) at the full mamba2 layer (B=2, S=512, H=32, P=64, G=1,
+    N=128; the whole training micro-batch, about 1 CPU second) with dA as
+    the model draws it (cumsum over a 256-row chunk near -700), at
+    chip_smoke's full-layer hold, 1e-3 x max|plain| for y and for h: with
+    every f32 operand split into bf16 hi + lo no output is over it; rounded
+    once to bf16, hundreds are (135 of y and 253 of h at this seed), which
+    shows that the hold tells the two apart."""
+    r = np.random.default_rng(16)
+    B, S, H, G, P, N = 2, 512, 32, 1, 64, 128
+    dt0 = np.exp(r.uniform(size=H) * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+    dt = np.logaddexp(r.normal(size=(B, S, H)) + dt0 + np.log(-np.expm1(-dt0)), 0.0)
+    A = -np.arange(1, H + 1, dtype=np.float64)
+    x = torch.from_numpy((r.normal(size=(B, S, H, P)) * dt[..., None]).astype(np.float32))
+    dA = torch.from_numpy((dt * A).astype(np.float32))
+    Bm, Cm = (torch.from_numpy(r.normal(size=(B, S, G, N)).astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2))
+    assert float(dA.reshape(B, -1, 256, H).cumsum(2).min()) < -300
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, 256)
+    y, h = _emulate_tensor_core_ssd(x, dA, Bm, Cm, scheme)
+    over = [int(((out - ref).abs() > 1e-3 * ref.abs().max()).sum())
+            for out, ref in ((y, py), (h, ph))]
+    assert (over == [0, 0]) == within, f"{scheme}: {over} of y and h over 1e-3 x max|plain|"
+    if not within:
+        assert min(over) > 0, f"{scheme}: {over}"
+
+
+def _card_test_inputs(B, S, H, G, P, N, seed):
+    """The draws of tests/test_torch_gpu.py's ``_ssd_inputs`` (those of
+    tests/test_kernels.py), on the CPU, with B and C rounded to bf16."""
+    r = np.random.default_rng(seed)
+    dt = r.uniform(0.01, 0.2, size=(B, S, H))
+    A = -r.uniform(0.3, 2.0, size=(H,))
+    x = r.normal(size=(B, S, H, P)) * dt[..., None]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))  # noqa: E731
+    return (t(x), t(dt * A), t(r.normal(size=(B, S, G, N))).to(torch.bfloat16),
+            t(r.normal(size=(B, S, G, N))).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("S", [384, 421], ids=["3-chunks", "ragged-4-chunks"])
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_tensor_core_precision_scheme_within_the_group_tests_hold(G, S):
+    """The split scheme's arithmetic at the inputs of the card test
+    test_cuda_ssd_scan_groups_share_scores_across_chunks (H=8, P=64, N=128,
+    the same seeds) against the plain version: within that test's hold,
+    rtol 1e-3 over atol 1e-4 x max|plain|.  The split keeps each f32
+    operand to 2^-17, so the error follows the size of the sums, which at
+    N = 128 reach tens."""
+    x, dA, Bm, Cm = _card_test_inputs(2, S, 8, G, 64, 128, S + G)
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, S)
+    y, h = _emulate_tensor_core_ssd(x, dA, Bm, Cm, "split")
+    torch.testing.assert_close(y, py, atol=1e-4 * float(py.abs().max()), rtol=1e-3)
+    torch.testing.assert_close(h, ph, atol=1e-4 * float(ph.abs().max()), rtol=1e-3)
