@@ -41,7 +41,8 @@ never imports ``jax`` or the JAX package):
      every step; then mamba2-370m at full width
      and seq 512 (two SSD chunks), the same flags: ``coded_reduce`` m+1
      times a step and ``ssd_scan`` 48 times a forward pass, (m*n_slots + 1)
-     passes a step;
+     passes a step; one more mamba2 step under ``torch.profiler`` (device
+     time by kernel group, the device's busy share);
   6. a cross-check at full width in f32 with TF32 off: one decoded gradient
      from the spmd backend (through the kernels) against the fused backend
      (autograd), relative L2 error <= 1e-4; and the compressed spmd
@@ -70,7 +71,22 @@ never imports ``jax`` or the JAX package):
      to sequential decode, a parting token allowed only at a near-tie (top-2
      gap <= 1e-5 of max|logit|); in bf16 the kernel-vs-plain logit
      difference and token agreement are printed, not held;
-  9. a JSON line of the kernels, then the card as the last line.
+  9. the fault-tolerant trainer on full-width smollm-360m, int8 wire, m=4
+     at equal speeds, faults ``corrupt:1@1..3,crash:3@4``: (a) 8 steps with
+     tracing, the event log and a checkpoint every 4 steps; every step
+     finite or skipped as non-finite, at least one step repaired, an
+     eviction and an exact step at the smaller m; the error feedback finite
+     and (m, D) after every step; the trajectory (m, decode metrics,
+     repairs, the supervisor's summary, the gradient attempts) equal to a
+     CPU replay at reduced width; each wire kernel's launches equal to what
+     the attempts imply (the encode m a step attempt, the decode 1); (b)
+     ``obs_report`` on the event log, its phase table (the host/device split
+     of ``phase.spmd.pack/grads/unravel``) and its fault section with the
+     convicted workers; (c) the last checkpoint restored bit-equal to the
+     state the run ended with, then ``--resume`` on the uncompressed wire:
+     ``resumed from step 8`` and two more finite steps, ``coded_reduce``
+     m+1 times a step;
+ 10. a JSON line of the kernels, then the card as the last line.
 
 Each main path and serving path is driven with every kernel's launch count
 set to 0 just before it and read just after.  Exits non-zero, printing no result,
@@ -130,6 +146,20 @@ NEAR_TIE = 1e-5  # a parting token passes only at a top-2 gap <= this x max|logi
 NO_LIBRARY = ("no single PyTorch call computes it: torch.mv takes no int8 input, "
               "and PyTorch has no fused reduce + int8 quantize")
 NO_SSD_LIBRARY = "no single PyTorch call computes an SSD scan"
+# the fault-tolerant trainer: equal speeds, so every worker arrives at the
+# step's resolution time and a quarantined worker can be decoded around.
+# Worker 1's payload is corrupt at steps 1-2 (repaired by excluding it, then
+# convicted and evicted: m 4 -> 3); worker 3 crashes at step 4 (convicted on
+# timeout and evicted: m 3 -> 2).
+FAULT_SPEC, FAULT_STEPS, CKPT_EVERY, RESUME_STEPS = "corrupt:1@1..3,crash:3@4", 8, 4, 10
+FAULT_BASE = ["--arch", ARCH, "--backend", "spmd", "--scheme", "heter_aware", "--s", str(S),
+              "--m", str(M), "--straggler", "none", "--speeds", ",".join(["1"] * M)]
+FAULT_ARGS = [*FAULT_BASE, "--compress", "--wire-kernel", "on", "--faults", FAULT_SPEC,
+              "--steps", str(FAULT_STEPS)]
+RESUME_ARGS = [*FAULT_BASE, "--steps", str(RESUME_STEPS)]
+# the control-plane trajectory of a faulted run: none of it depends on width
+TRAJECTORY = ("n_used", "exact", "repaired", "skipped_nonfinite", "skipped", "sim_iter_time",
+              "decode_residual", "n_stragglers", "exact_fraction")
 
 
 _T0 = time.perf_counter()
@@ -494,11 +524,11 @@ def launch_counters() -> dict:
 
 
 def main_path(torch, label: str, args: list[str], expected, on_step=None,
-              n_params_want: int = D_FULL) -> dict:
+              n_params_want: int = D_FULL, profile: bool = False) -> dict:
     """Phase 5: one slice command in process, every kernel's count set to 0
-    just before it and read just after, then one profiled step.
-    ``expected(steps_taken)`` maps each kernel to the launches the path must
-    make."""
+    just before it and read just after, then, with ``profile``, one more
+    step under ``torch.profiler``.  ``expected(steps_taken)`` maps each
+    kernel to the launches the path must make."""
     arch = args[args.index("--arch") + 1]
     from repro_torch.launch.train import main as train_main
 
@@ -553,7 +583,7 @@ def main_path(torch, label: str, args: list[str], expected, on_step=None,
     steady = statistics.median(out["step_s"][1:])
     log(f"main path ({label}) step time: median of steps 1-{STEPS - 1} {steady:.4f} s "
         f"(step 0 {out['step_s'][0]:.4f} s includes the first batch and warm-up)")
-    breakdown = profile_step(torch, out, label)
+    breakdown = profile_step(torch, out, label) if profile else {}
     del out
     torch.cuda.empty_cache()
     return dict(launches=launches, steps=steps_taken, peak_gib=peak / 2**30, wall_s=wall,
@@ -639,6 +669,206 @@ def profile_step(torch, out, label: str) -> dict:
     for ms, count, key in host[:8]:
         log(f"    {ms:8.2f} ms {count:7d}x {key[:100]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, **{f"{g}_ms": v for g, v in groups.items()}}
+
+
+def _attempts(records: list[dict]) -> list[tuple[int, int]]:
+    """(engine.step attempts, m) of each step of a traced run: the
+    ``phase.spmd.grads`` spans inside each ``step`` span (one a gradient
+    attempt, repairs included), and the worker count of its ``train.step``
+    record (evictions apply at the top of a step, before its attempts)."""
+    spans = [r for r in records if r["kind"] == "span"]
+    steps = sorted((r for r in spans if r["name"] == "step"), key=lambda r: r["args"]["step"])
+    grads = [r for r in spans if r["name"] == "phase.spmd.grads"]
+    m_of = {r["args"]["step"]: int(r["args"]["m"]) for r in records
+            if r["kind"] == "event" and r["name"] == "train.step"}
+    return [(sum(1 for g in grads if s["t0"] <= g["t0"] and g["t1"] <= s["t1"]),
+             m_of[s["args"]["step"]]) for s in steps]
+
+
+def _same_bits(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def fault_path(torch) -> dict:
+    """Phase 9, the fault-tolerant trainer at full width on the int8 wire:
+    (a) a faulted, traced, checkpointed run, held against a CPU replay at
+    reduced width (the control plane does not depend on width) and its
+    kernels' launches against the attempts its event log shows; (b)
+    ``obs_report`` on its event log; (c) ``--resume`` from its last
+    checkpoint on the uncompressed wire, the restored state bit-equal to
+    the saved one.  The checkpoints (params, f32 master and moments, about
+    5.8 GB each) live under build/ and are removed at the end."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.launch import obs_report
+    from repro_torch.launch.train import main as train_main
+
+    tmp = ROOT / "build" / "chip_smoke_faults"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ck, logf, tracef = tmp / "ck", tmp / "run.jsonl", tmp / "run.trace.json"
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"fault path: {free / 2**30:.1f} GiB free under {tmp}")
+        # (a) the CPU replay, then the run on the card
+        log("control-plane replay of the fault path (reduced width, CPU):")
+        replay = train_main([*FAULT_ARGS, "--reduced", "--device", "cpu",
+                             "--log-jsonl", str(tmp / "replay.jsonl")])
+        replay_att = _attempts(obs_report.load_records(str(tmp / "replay.jsonl")))
+        counters = launch_counters()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+
+        def check_err(trainer, step, state, metrics):
+            err = trainer.engine._err
+            finite = bool(torch.isfinite(err).all())
+            log(f"  after step {step}: m {trainer.m}, error feedback {tuple(err.shape)} "
+                f"finite {finite}, max|err| {float(err.abs().max()):.3e}")
+            if not finite or tuple(err.shape) != (trainer.m, D_FULL):
+                raise AssertionError(f"step {step}: error feedback not finite or not "
+                                     f"({trainer.m}, {D_FULL})")
+
+        args = [*FAULT_ARGS, "--ckpt-dir", str(ck), "--ckpt-every", str(CKPT_EVERY),
+                "--trace-out", str(tracef), "--log-jsonl", str(logf), "--device", "cuda"]
+        log("fault path (a): python -m repro_torch.launch.train " + " ".join(args))
+        t0 = time.perf_counter()
+        out = train_main(args, on_step=check_err)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist, summary, trainer = out["history"], out["summary"], out["trainer"]
+        records = obs_report.load_records(str(logf))
+        att = _attempts(records)
+        ms = [m for _, m in att]
+        for i, (h, (n, m)) in enumerate(zip(hist, att)):
+            log(f"  step {i}: {out['step_s'][i]:.4f} s, m {m}, attempts {n}, loss {h['loss']:.5f} "
+                f"grad_norm {h['grad_norm']:.4f} n_used {h['n_used']:.0f} exact {h['exact']:.0f} "
+                f"repaired {h.get('repaired', 0.0):.0f} skipped_nonfinite "
+                f"{h['skipped_nonfinite']:.0f}")
+        log(f"fault path (a): {len(hist)} steps in {wall:.2f} s wall (init, checkpoints and "
+            f"trace included), peak memory {peak:.2f} GiB, launches {launches}, "
+            f"resilience {summary['resilience']}, m_final {summary['m_final']}")
+        if len(hist) != FAULT_STEPS or len(att) != FAULT_STEPS:
+            raise AssertionError(f"ran {len(hist)} steps ({len(att)} traced), "
+                                 f"expected {FAULT_STEPS}")
+        for i, (h, e) in enumerate(zip(hist, replay["history"])):
+            finite = math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            if not (finite or h["skipped_nonfinite"] == 1.0):
+                raise AssertionError(f"step {i}: non-finite and not skipped_nonfinite: {h}")
+            for key in TRAJECTORY:
+                if h.get(key, 0.0) != e.get(key, 0.0):
+                    raise AssertionError(f"step {i}: {key} {h.get(key)} != CPU replay {e.get(key)}")
+        if att != replay_att or summary["resilience"] != replay["summary"]["resilience"] \
+                or summary["m_final"] != replay["summary"]["m_final"]:
+            raise AssertionError(f"trajectory {att} {summary['resilience']} m_final "
+                                 f"{summary['m_final']} != CPU replay {replay_att} "
+                                 f"{replay['summary']['resilience']} "
+                                 f"{replay['summary']['m_final']}")
+        m_final = summary["m_final"]
+        repaired = sum(h.get("repaired", 0.0) for h in hist)
+        if not (repaired >= 1 and summary["resilience"]["evictions"] >= 1 and m_final < M
+                and ms[-1] == m_final and hist[-1]["exact"] == 1.0):
+            raise AssertionError(f"the run shows no repair, eviction and exact step at the "
+                                 f"smaller m: repaired {repaired}, {summary['resilience']}, m {ms}")
+        err = trainer.engine._err
+        if tuple(err.shape) != (m_final, D_FULL) or not bool(torch.isfinite(err).all()):
+            raise AssertionError(f"final error feedback {tuple(err.shape)} not finite "
+                                 f"({m_final}, {D_FULL})")
+        # the encode m_cur a step attempt, the decode 1 (counted in coded_reduce too)
+        n_att = sum(n for n, _ in att)
+        want = {"coded_reduce": n_att, "coded_encode_int8": sum(n * m for n, m in att),
+                "coded_decode_int8": n_att, "ssd_scan": 0, "flash_attention": 0}
+        if launches != want:
+            raise AssertionError(f"launches {launches} != {want} from the attempts {att}")
+        log(f"fault path (a) ok: {repaired:.0f} steps repaired, m {ms}, every step finite or "
+            f"skipped, launches == the attempts' {want}, trajectory == CPU replay")
+        step_s = out["step_s"]
+        state = out["state"]
+        del out, trainer, err
+        torch.cuda.empty_cache()
+
+        # (b) obs_report on the event log
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            obs_report.main([str(logf)])
+        report = buf.getvalue()
+        log("fault path (b): python -m repro_torch.launch.obs_report " + str(logf))
+        for line in report.splitlines():
+            log("  | " + line)
+        convicted = [c["worker"] for c in obs_report.fault_section(records)["convictions"]]
+        for want_text in ("phase.spmd.pack", "phase.spmd.grads", "phase.spmd.unravel",
+                          "== faults ==", "-- convictions --"):
+            if want_text not in report:
+                raise AssertionError(f"obs_report printed no {want_text!r}")
+        if not convicted or summary["resilience"]["convictions"] != len(convicted):
+            raise AssertionError(f"fault section convictions {convicted} != {summary['resilience']}")
+        phases = {r["phase"]: r for r in obs_report.phase_table(records) if r["clock"] == "wall"}
+        split = {name: {"n": phases[name]["n"], "total_ms": phases[name]["total_s"] * 1e3,
+                        "p50_ms": phases[name]["p50"] * 1e3}
+                 for name in ("step", "phase.pack+encode+wire+decode", "phase.spmd.pack",
+                              "phase.spmd.grads", "phase.spmd.unravel", "phase.loss",
+                              "phase.apply", "prefetch.upload") if name in phases}
+        log(f"fault path (b) ok: convicted workers {convicted}; phase split (ms) {split}")
+
+        # (c) resume: the restored state bit-equal to the saved one, then more steps
+        last = latest_step(str(ck))
+        t1 = time.perf_counter()
+        restored, meta = restore_checkpoint(str(ck), last, {"params": state.params,
+                                                            "opt": state.opt})
+        restore_s = time.perf_counter() - t1
+        opt, ropt = state.opt, restored["opt"]
+        pairs = [(state.params, restored["params"]), (opt.mu, ropt.mu), (opt.nu, ropt.nu),
+                 (opt.master or {}, ropt.master or {})]
+        n_leaves = sum(len(a) for a, _ in pairs)
+        if last != FAULT_STEPS or ropt.step != opt.step or not all(
+                _same_bits(torch, a[k], b[k]) for a, b in pairs for k in a):
+            raise AssertionError(f"checkpoint {last} does not restore bit-equal to the state "
+                                 f"the run ended with")
+        ck_gb = sum(f.stat().st_size for f in (ck / f"step_{last:08d}").iterdir()) / 1e9
+        log(f"fault path (c): checkpoint step {last} ({ck_gb:.2f} GB on disk, meta {meta}) "
+            f"restored in {restore_s:.2f} s, {n_leaves} leaves (params, mu, nu, master) and "
+            f"the optimizer step bit-equal to the saved state")
+        del state, opt, restored, ropt, pairs
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        args = [*RESUME_ARGS, "--ckpt-dir", str(ck), "--resume", "--device", "cuda"]
+        log("fault path (c): python -m repro_torch.launch.train " + " ".join(args))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = train_main(args)
+        torch.cuda.synchronize()
+        for line in buf.getvalue().splitlines():
+            log("  | " + line)
+        r_launches = {name: fn.launches for name, fn in counters.items()}
+        n_res = RESUME_STEPS - FAULT_STEPS
+        r_want = {"coded_reduce": n_res * (M + 1), "coded_encode_int8": 0,
+                  "coded_decode_int8": 0, "ssd_scan": 0, "flash_attention": 0}
+        if f"resumed from step {FAULT_STEPS}" not in buf.getvalue():
+            raise AssertionError(f"no 'resumed from step {FAULT_STEPS}' line")
+        if res["summary"]["steps_run"] != n_res or len(res["history"]) != n_res or not all(
+                math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in res["history"]):
+            raise AssertionError(f"resume: {res['summary']}, {res['history']}")
+        if r_launches != r_want:
+            raise AssertionError(f"resume launches {r_launches} != {r_want}")
+        log(f"fault path (c) ok: {n_res} more finite steps, losses "
+            f"{[h['loss'] for h in res['history']]}, launches {r_launches}")
+        del res
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(wall_s=wall, steps=FAULT_STEPS, step_s=step_s, attempts=att, m=ms,
+                launches=launches, resilience=summary["resilience"], m_final=m_final,
+                peak_gib=peak, phase_split=split, convicted=convicted, ckpt_gb=ck_gb,
+                restore_s=restore_s, resume_launches=r_launches)
 
 
 def rel_l2(a: dict, b: dict) -> float:
@@ -1478,7 +1708,10 @@ def main() -> int:
     xc = cross_check(torch, ARCH, seq_len=64, part_mb=2, wire=True)
     log(f"mamba2 main path: {passes} forward passes a step (m * n_slots = {M * n_slots} "
         f"gradients + 1 loss), so ssd_scan {passes * MAMBA_LAYERS} launches a step")
-    mamba_run = main_path(torch, "mamba2 spmd", MAMBA_ARGS, mamba_launches, n_params_want=D_MAMBA)
+    # one profiled step, mamba2's: the smollm paths' profiles (PERF.md § 5)
+    # cost 200 s of the time limit, and phase 9's spans split their steps
+    mamba_run = main_path(torch, "mamba2 spmd", MAMBA_ARGS, mamba_launches,
+                          n_params_want=D_MAMBA, profile=True)
     # seq 512 in micro-batches of 1: two chunks, so the carried state runs
     mxc = {**cross_check(torch, MAMBA, seq_len=MAMBA_SEQ, part_mb=1, wire=False),
            **mamba_kernel_check(torch)}
@@ -1490,7 +1723,10 @@ def main() -> int:
         serve[arch]["cross_check"] = serve_cross_check(torch, arch, serve[arch])
         del serve[arch]["gen_tokens"], serve[arch]["prompts"]
 
-    # 9. the kernels line, then the card
+    # 9. the fault-tolerant trainer
+    faults = fault_path(torch)
+
+    # 10. the kernels line, then the card
     kernels = [{
         "name": "coded_reduce",
         "route": "cuda",
@@ -1504,6 +1740,8 @@ def main() -> int:
         "decode": {k: dec[k] for k in ("P", "D", "ms", "plain_ms", "bound_ms", "library_ms",
                                         "max_abs_err")},
         "launches_compressed_path": wire_run["launches"]["coded_reduce"],
+        "launches_fault_path": faults["launches"]["coded_reduce"],
+        "launches_resume": faults["resume_launches"]["coded_reduce"],
         "checks_worst_scaled_err": worst,
     }, {
         "name": "coded_encode_int8",
@@ -1517,6 +1755,7 @@ def main() -> int:
         "unfused_ms": wenc["unfused_ms"],
         "shape": f"f32 ({wenc['P']}, {wenc['D']}) + err -> int8 q, scale, new_err in place",
         "oracle_cases_bit_equal": n_bit,
+        "launches_fault_path": faults["launches"]["coded_encode_int8"],
         "wire_kernel_default": auto,
     }, {
         "name": "coded_decode_int8",
@@ -1531,6 +1770,7 @@ def main() -> int:
         "shape": f"int8 ({wdec['m']}, {wdec['D']}) -> f32 ({wdec['D']},), coded_reduce's "
                  "int8 instantiation",
         "checks_worst_scaled_err": dec_worst,
+        "launches_fault_path": faults["launches"]["coded_decode_int8"],
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -1579,13 +1819,13 @@ def main() -> int:
     }]
     log(f"summary: spmd step {run['step_s']:.4f} s (median), peak {run['peak_gib']:.2f} GiB, "
         f"losses {run['losses']}; spmd --compress step {wire_run['step_s']:.4f} s, "
-        f"peak {wire_run['peak_gib']:.2f} GiB, losses {wire_run['losses']}; cross-check {xc}; "
-        f"profiles {run['breakdown']} / {wire_run['breakdown']}")
+        f"peak {wire_run['peak_gib']:.2f} GiB, losses {wire_run['losses']}; cross-check {xc}")
     log(f"summary: mamba2 spmd step {mamba_run['step_s']:.4f} s (median), peak "
         f"{mamba_run['peak_gib']:.2f} GiB, losses {mamba_run['losses']}, launches "
         f"{mamba_run['launches']}; cross-check {mxc}; profile {mamba_run['breakdown']}")
     for arch in (ARCH, MAMBA):
         log(f"summary: serve {arch} {json.dumps(serve[arch], default=str)}")
+    log(f"summary: fault path {json.dumps(faults, default=str)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

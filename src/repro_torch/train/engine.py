@@ -25,9 +25,14 @@ cached on the device; every path that changes plan values (rebalance,
 membership change, checkpoint restore) builds a new plan object, so the
 next step re-uploads.
 
-Not ported yet: the multi-process spmd path and its mesh rebuild, the
-wire state's checkpoint (``state_dict``), and the host-side pack baseline
-(``host_pack``).
+Phase spans: with a tracer installed (``engine.tracer``, the trainer's),
+each step's phases land on the wall-clock track, as in the JAX engine; the
+spmd backend's ``phase.spmd.grads`` closes after a device synchronize, so
+it holds the device time of the per-worker gradients, the encode and the
+decode.  Tracing off adds nothing to the step.
+
+Not ported yet: the multi-process spmd path and its mesh rebuild, and the
+host-side pack baseline (``host_pack``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.placement import place_rows
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregator import (
     FlatView,
@@ -45,13 +51,13 @@ from repro_torch.core.aggregator import (
     pack_coded_batch,
     pack_flat_device,
     protocol_reference,
-    remap_err_rows,
     slot_weights_device,
     support_slot_mask_device,
 )
 from repro_torch.core.codec import Codec
 from repro_torch.core.decoding import DecodeOutcome
 from repro_torch.kernels.autotune import wire_kernel_default
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.optim.adam import AdamWState, adamw_init, adamw_update, global_norm
 from repro_torch.optim.schedules import cosine_warmup
 
@@ -118,6 +124,8 @@ class StepEngine:
         self._err: torch.Tensor | None = None
         self._err_version: int | None = None
         self._row_map: list[int | None] | None = None
+        # the trainer installs its tracer; off, every site costs one check
+        self.tracer = NULL_TRACER
 
     # -- state -------------------------------------------------------------
 
@@ -248,7 +256,7 @@ class StepEngine:
         coefficients); otherwise start from zeros."""
         m = self.codec.m
         if self._err is not None and self._row_map is not None and len(self._row_map) == m:
-            self._err = remap_err_rows(self._err, self._row_map)
+            self._err = place_rows(self._err, self._row_map)
         elif not (
             self._err is not None and self._row_map is None
             and tuple(self._err.shape) == (m, width)
@@ -257,9 +265,50 @@ class StepEngine:
         self._row_map = None
         self._err_version = self.codec.version
 
+    def state_dict(self) -> dict:
+        """JSON-able wire-path state beyond (params, opt): the spmd
+        backend's per-worker error-feedback rows keyed to their codec
+        version.  Restoring it makes a mid-churn spmd resume bit-exact,
+        compression residuals included; other backends return {}.  The
+        rows are a JSON list, as in the JAX engine: m·D floats, so a
+        compressed full-width engine's state is gigabytes of text."""
+        if self.backend != "spmd" or self._err is None:
+            return {}
+        return {
+            "err": self._err.cpu().numpy().astype(np.float32).tolist(),
+            "err_version": int(self._err_version),
+            "err_width": int(self._err.shape[1]),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore wire-path state.  The codec must already be restored
+        (the trainer orders codec → elastic → engine); the rows land on the
+        device through :func:`~repro_torch.checkpoint.placement.place_rows`,
+        as a membership sync's do.  An empty dict resets to the lazy-build
+        state (zeroed error feedback on the next step)."""
+        if self.backend != "spmd":
+            return
+        self._row_map = None
+        if not state:
+            self._err = None
+            self._err_version = None
+            return
+        self._err = place_rows(np.asarray(state["err"], np.float32), device=self.device)
+        self._err_version = int(state["err_version"])
+
+    def _sync(self) -> None:
+        """Wait for the device, so a traced span closes on device time."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     # -- gradients (backend seam, used directly by the equivalence tests) ---
 
     def _spmd_gradients(self, params: Params, pbatch: dict, a, support) -> Params:
+        # per-phase spans: pack / the m workers' gradients, encode and
+        # decode (tagged with the kernels that ran) / unravel
+        tr = self.tracer
+        traced = tr.enabled
+        t0 = tr.clock() if traced else 0.0
         plan = self.codec.plan
         pids, _, mask = self._device_plan()
         if support is None:
@@ -277,11 +326,25 @@ class StepEngine:
             self._sync_err(self._view.size if self.compress else 1)
         a_dev = torch.as_tensor(np.asarray(a) / plan.k, dtype=torch.float32, device=self.device)
         sb = pack_coded_batch(pbatch, pids)
+        if traced:
+            t1 = tr.clock()
+            tr.span_at("phase.spmd.pack", t0, t1, clock="wall", where="host")
         flat, self._err = faithful_spmd_step(
             self._slot_loss, params, sb, coeff, a_dev, self._err, self._view,
             compress=self.compress, wire_kernel=self.wire_kernel,
         )
-        return self._view.unravel(flat)
+        if traced:
+            self._sync()
+            t2 = tr.clock()
+            kernels = (
+                "coded_encode_int8+coded_decode_int8" if self.wire_kernel
+                else "coded_reduce" + ("+quantize_int8" if self.compress else "")
+            )
+            tr.span_at("phase.spmd.grads", t1, t2, clock="wall", kernels=kernels)
+        out = self._view.unravel(flat)
+        if traced:
+            tr.span_at("phase.spmd.unravel", t2, tr.clock(), clock="wall")
+        return out
 
     def gradients(self, params: Params, partition_batch: dict, a) -> Params:
         """Decoded gradient under decode vector ``a`` (ndarray, or a
@@ -305,21 +368,49 @@ class StepEngine:
     ) -> tuple[TrainerState, dict[str, float]]:
         """One optimizer step from a partition-major batch + decode vector
         (or DecodeOutcome).  ``loss`` is the weighted loss at the decoded
-        slot weights, before the update."""
+        slot weights, before the update.
+
+        Phase spans, with tracing on: ``phase.upload`` and ``phase.fused``
+        (forward, backward and apply) on the fused backend; the gradients
+        (``phase.pack+encode+wire+decode`` on spmd, ``phase.gradients`` on
+        reference), ``phase.loss`` and ``phase.apply`` on the others.  The
+        last span of a step closes after a device synchronize."""
+        tr = self.tracer
+        traced = tr.enabled
+        t0 = tr.clock() if traced else 0.0
         a_vec, support = self._split_decode(a)
         pbatch = self._to_device(partition_batch)
         if self.backend == "fused":
-            loss, grads = self._value_and_grad(
-                state.params, self._device_batch(pbatch, a_vec, support)
-            )
+            batch = self._device_batch(pbatch, a_vec, support)
+            if traced:
+                t1 = tr.clock()
+                tr.span_at("phase.upload", t0, t1, clock="wall",
+                           what="unique batch + decode vector + support mask")
+            loss, grads = self._value_and_grad(state.params, batch)
+            del batch
         else:
             grads = self.gradients(state.params, pbatch, a)
+            if traced:
+                t1 = tr.clock()
+                name = ("phase.pack+encode+wire+decode" if self.backend == "spmd"
+                        else "phase.gradients")
+                tr.span_at(name, t0, t1, clock="wall", backend=self.backend)
             with torch.no_grad():
                 loss = self.model.weighted_loss(
                     state.params, self._device_batch(pbatch, a_vec, support)
                 )
         loss = float(loss)
+        if traced and self.backend != "fused":
+            t2 = tr.clock()
+            tr.span_at("phase.loss", t1, t2, clock="wall")
         params, opt, gnorm, lr = self._adamw(state.params, grads, state.opt, state.step)
         del grads
+        if traced:
+            self._sync()
+            if self.backend == "fused":
+                tr.span_at("phase.fused", t1, tr.clock(), clock="wall",
+                           phases="pack+encode+decode+apply")
+            else:
+                tr.span_at("phase.apply", t2, tr.clock(), clock="wall")
         new_state = TrainerState(params=params, opt=opt, step=state.step + 1)
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}

@@ -31,6 +31,8 @@ from typing import Any, Iterator, Protocol
 import numpy as np
 import torch
 
+from repro_torch.obs.trace import NULL_TRACER, Tracer
+
 __all__ = ["DevicePrefetcher"]
 
 _DONE = object()  # worker sentinel: range exhausted
@@ -52,28 +54,42 @@ class BatchSource(Protocol):
 
 class DevicePrefetcher:
     """Iterate ``(step, device_batch)`` over ``[start, stop)`` with one batch
-    of lookahead built on a worker thread (at most two batches alive)."""
+    of lookahead built on a worker thread (at most two batches alive).
 
-    def __init__(self, data: BatchSource, start: int, stop: int, device="cuda"):
+    With a tracer installed, each background build + upload lands as a
+    ``prefetch.upload`` span on its own wall-clock track (tid=1): overlap
+    with the ``step`` spans on tid 0 is the double buffering at work, a gap
+    before a step span a prefetch stall.  On CUDA the span closes when the
+    copy is issued, not when it lands."""
+
+    def __init__(self, data: BatchSource, start: int, stop: int, device="cuda",
+                 trace: Tracer | None = None):
         self.data = data
         self.start = start
         self.stop = stop
         self.device = torch.device(device)
+        self.tracer = trace if trace is not None else NULL_TRACER
         self._stream = None
 
     def _load(self, step: int) -> tuple[dict[str, torch.Tensor], Any]:
+        tr = self.tracer
+        t0 = tr.clock() if tr.enabled else 0.0
         batch = self.data.batch(step)
         if self.device.type != "cuda":
-            return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}, None
-        with torch.cuda.stream(self._stream):
-            out = {
-                k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
-                    self.device, non_blocking=True
-                )
-                for k, v in batch.items()
-            }
-            ready = torch.cuda.Event()
-            ready.record(self._stream)
+            out = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
+            ready = None
+        else:
+            with torch.cuda.stream(self._stream):
+                out = {
+                    k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+                        self.device, non_blocking=True
+                    )
+                    for k, v in batch.items()
+                }
+                ready = torch.cuda.Event()
+                ready.record(self._stream)
+        if tr.enabled:
+            tr.span_at("prefetch.upload", t0, tr.clock(), clock="wall", tid=1, step=step)
         return out, ready
 
     def _worker(self, q: queue.Queue, slots: threading.Semaphore,

@@ -60,6 +60,89 @@ def test_cuda_nan_weight_poisons(cuda_device):
     assert torch.isnan(coded_reduce(g, w)).all()
 
 
+def _poison_inputs(case, D, dev):
+    r = np.random.default_rng(D)
+    if case == "int8->f32":
+        g = torch.from_numpy(r.integers(-127, 128, size=(4, D)).astype(np.int8))
+    else:
+        g = torch.from_numpy(r.normal(size=(4, D)).astype(np.float32))
+        g = g.to(torch.bfloat16 if case == "bf16->f32" else torch.float32)
+    g[2] = 0  # the poisoned row is all zeros: 0 * NaN must still be NaN
+    return g.to(dev)
+
+
+def _decode(case, g, w):
+    if case == "int8->f32":  # the trainer's int8 decode: ws = a * scale
+        return wire.coded_decode_int8(g, w)
+    return coded_reduce(g, w, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4096, 4095, 1 << 20])
+@pytest.mark.parametrize("case", ["f32", "bf16->f32", "int8->f32"])
+def test_cuda_poisoned_decode_coefficient_gives_nan_everywhere_it_multiplies(cuda_device, case, D):
+    """The trainer's poisoned-payload contract on the decode kernels: a NaN
+    coefficient beside a zero one gives NaN in every output (it multiplies
+    every column), the same weights with the NaN zeroed give none."""
+    g = _poison_inputs(case, D, cuda_device)
+    w = torch.tensor([0.5, 0.0, float("nan"), -1.0], device=cuda_device)
+    assert torch.isnan(_decode(case, g, w)).all()
+    w[2] = 0.0
+    assert torch.isfinite(_decode(case, g, w)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32", "bf16->f32"])
+def test_cuda_nan_payload_poisons_exactly_its_column(cuda_device, case):
+    """A NaN in one coded value reaches exactly its output column, also
+    where its row's weight is zero (rows are multiplied in, never skipped)."""
+    D = 4099
+    g = _poison_inputs(case, D, cuda_device)
+    g[1, 1234] = float("nan")
+    w = torch.tensor([0.5, 0.0, 2.0, -1.0], device=cuda_device)
+    bad = torch.isnan(coded_reduce(g, w, torch.float32)).nonzero().flatten().tolist()
+    assert bad == [1234]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,compress", [("fused", False), ("spmd", False), ("spmd", True)],
+                         ids=["fused", "spmd", "spmd-compress"])
+def test_cuda_poisoned_engine_step_leaves_state_bit_unchanged(cuda_device, backend, compress):
+    """One full engine step on the card with a NaN decode coefficient: the
+    decode kernels run and go non-finite, and params, moments, master
+    weights and the optimizer's step stay bit for bit as they were."""
+    from repro_torch.configs import CodingConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.trainer import CodedTrainer
+
+    model = build_model(get_config("smollm-360m").reduced())
+    tr = CodedTrainer(model, CodingConfig(scheme="heter_aware", s=1, compress=compress,
+                                          wire_kernel=compress),
+                      TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4), m=4, part_mb=2,
+                      backend=backend, device=cuda_device)
+    data = SyntheticData(model.cfg, k=tr.k, part_mb=2, seq_len=16, seed=0)
+    state, met = tr.step(tr.init_state(0), data.batch(0))
+    assert np.isfinite(met["loss"])
+    snap = {name: {k: v.clone() for k, v in tree.items()} for name, tree in
+            (("params", state.params), ("mu", state.opt.mu), ("nu", state.opt.nu),
+             ("master", state.opt.master or {}))}
+    opt_step = state.opt.step
+    dec = tr.codec.decode_outcome(list(range(tr.m)))
+    poisoned = tr._poison_outcome(dec, tuple(tr._used_workers(dec)[:1]))
+    before = coded_reduce.launches
+    after, met = tr.engine.step(state, data.batch(1), poisoned)
+    torch.cuda.synchronize()
+    assert not np.isfinite(met["grad_norm"])
+    assert (coded_reduce.launches > before) == (backend == "spmd")
+    trees = {"params": after.params, "mu": after.opt.mu, "nu": after.opt.nu,
+             "master": after.opt.master or {}}
+    for name, tree in snap.items():
+        for k, v in tree.items():
+            assert torch.equal(trees[name][k].view(torch.uint8), v.view(torch.uint8)), (name, k)
+    assert after.opt.step == opt_step
+
+
 def _reduce_f32(g, w):
     """The kernel's own reduce (coded_reduce.cu, f32 out): the oracle's
     accumulation order then matches the encode kernel's bit for bit."""

@@ -9,7 +9,8 @@ its default ``fused`` backend (its spmd backend needs m devices).  Also:
 the port's launcher runs to its JSON summary on the CPU, uncompressed, on
 the int8 wire (``--compress --wire-kernel on``) and on mamba2; a non-finite compressed
 decode zeroes the error feedback; and neither the port's modules,
-``chip_smoke.py``, its main path, compressed or not, nor its serving path
+``chip_smoke.py``, its main path, compressed or not, with faults, tracing,
+checkpoints and a resume, ``obs_report``, nor its serving path
 (``LMServer.generate``, ``ServingEngine.run``) load ``jax`` or ``repro``.
 """
 
@@ -237,6 +238,15 @@ def test_main_path_never_loads_jax_or_repro():
         "main(args + ['--compress', '--wire-kernel', 'on'])\n"
         "main(args + ['--compress', '--wire-kernel', 'auto'])\n"
         "main(['--arch', 'mamba2-370m'] + args[2:])\n"
+        "import tempfile\n"
+        "from repro_torch.launch import obs_report\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    main(args + ['--compress', '--wire-kernel', 'on', '--steps', '4',\n"
+        "                 '--faults', 'corrupt:1@1..3,crash:3@2', '--speeds', '1,1,1,1',\n"
+        "                 '--ckpt-dir', tmp + '/ck', '--ckpt-every', '2',\n"
+        "                 '--trace-out', tmp + '/t.json', '--log-jsonl', tmp + '/t.jsonl'])\n"
+        "    main(args + ['--steps', '5', '--ckpt-dir', tmp + '/ck', '--resume'])\n"
+        "    obs_report.main([tmp + '/t.jsonl'])\n"
         "import numpy as np, torch\n"
         "import repro_torch.serve, repro_torch.train.serve\n"
         "from repro_torch.configs import get_config\n"
