@@ -23,13 +23,17 @@ never imports ``jax`` or the JAX package):
      bf16), ragged S up to 2047 with windows 1 and > S, hd = 128, the
      tensor-core kernel's stress cases (peaked softmax, zero-mean v, GQA
      groups of 1, 3 and 5 with windows across tile edges, every head size
-     at a ragged S), and the full prefill shapes;
+     at a ragged S), the full prefill shapes, and the model families'
+     prefill shapes (hd 128 at GQA groups 1 and 2, and a window of 4096
+     over 6144 tokens);
   4. each kernel's time at the main path's shapes (CUDA events, median)
      beside its bound, the plain version's time, the unfused composition's
      time for the wire kernels, and one PyTorch library call computing the
      same function where there is one (timed here, never used by the port);
      flash attention at the generate prefill's shape and the engine's
-     longest and shortest prompts, kernel and library call in turns; the
+     longest and shortest prompts, kernel and library call in turns, and
+     at the families' prefill shapes (a window's bound counting only the
+     pairs inside it; the library call takes it as a boolean mask); the
      SSD scan at the training micro-batch, the generate prefill and the
      engine's longest prompt;
   5. the main path: ``repro_torch.launch.train`` on smollm-360m at full
@@ -86,7 +90,37 @@ never imports ``jax`` or the JAX package):
      state the run ended with, then ``--resume`` on the uncompressed wire:
      ``resumed from step 8`` and two more finite steps, ``coded_reduce``
      m+1 times a step;
- 10. a JSON line of the kernels, then the card as the last line.
+ 10. the model families, random bf16 weights from seed 0, each parameter
+     count checked: (a) moonshot-v1-16b-a3b (MoE, 64 experts top-6) at
+     full width and depth, ``LMServer.generate`` on 4 prompts of 1024
+     tokens, 64 new, cache 1088; (b) mixtral-8x7b at full width and 16 of
+     its 32 layers (memory), one prompt of 6144 tokens through its window of
+     4096, 64 new, decode past the ring's wrap; (c) internvl2-2b at full
+     width and depth, 4 prompts of 256 patch embeddings and 768 tokens, 64
+     new, cache 1088: flash attention once per attention layer of the
+     prefill call and never in decode, every call's logits finite, tokens in
+     [0, vocab); prefill and decode-step times, tokens per wall second, peak
+     memory; the bf16 kernel-vs-plain logit gap beside the one-ulp nudge of
+     the embedding, and the token agreement (printed, not held), through
+     phases 7 and 8's own helpers; (d) the reduced jamba (mamba, attention,
+     dense and MoE layers in one period) in bf16: generate with the SSD scan
+     and flash attention once per mamba and attention layer of the prefill,
+     the prefill's logits within one bf16 spacing of max|logit| of the plain
+     versions' and the tokens equal under the near-tie rule at four bf16
+     spacings, then one ``fused`` coded step through the launcher held to a
+     CPU replay, the step's own sequence losses each the plain model's
+     cross-entropy plus aux_coef x a finite, positive MoE term; (e)
+     hubert-xlarge at full width and depth, the spmd main path
+     (``coded_reduce`` m+1 times a step), step time and peak memory, then
+     ``coded_reduce`` at its wire's shapes, (n_slots, D) and (m, D) f32 with
+     D = 1,259,060,480 (past 2^31 elements a stack), held to the plain
+     version and timed; (f) at the reduced width in f32, TF32 off, for moonshot,
+     mixtral (prompts past its window), internvl2 and jamba: prefill through
+     the kernels against the plain versions (logits within 1e-4 of
+     max|logit|), ``generate`` tokens equal, and (but internvl2's, the
+     engine being tokens-only) continuous batching equal to sequential
+     decode, under the near-tie rule;
+ 11. a JSON line of the kernels, then the card as the last line.
 
 Each main path and serving path is driven with every kernel's launch count
 set to 0 just before it and read just after.  Exits non-zero, printing no result,
@@ -143,6 +177,35 @@ SSD_BATCH = 20  # calls a timed reading of ssd_scan spans
 # a floor for values near zero; in f32 a few f32 spacings of summation order.
 FLASH_TOL = {"bf16": (1e-4, 2.0**-7), "f32": (1e-5, 1e-5)}
 NEAR_TIE = 1e-5  # a parting token passes only at a top-2 gap <= this x max|logit|
+# the same rule for bf16 logits: four bf16 spacings of max|logit|
+BF16_NEAR_TIE = 2.0**-5
+# bf16 logits through the kernels against the plain versions, where held
+# (the reduced jamba): one bf16 spacing of max|logit|
+BF16_LOGIT_LIMIT = 2.0**-7
+# phase 10, the model families, random bf16 weights from seed 0: each
+# model's parameters at the depth it runs (mixtral: 16 of its 32 layers,
+# 47.0 GB of bf16 weights; all 32 are 93.4 GB, past one 80 GB card)
+FAMILY_PARAMS = {"moonshot-v1-16b-a3b": 28_057_995_264, "mixtral-8x7b": 23_482_470_400,
+                 "internvl2-2b": 1_889_146_880, "hubert-xlarge": 1_259_060_480}
+MIXTRAL_LAYERS = 16
+# every full-width model's parameter count, and the depth cuts of memory
+PARAMS = {ARCH: D_FULL, MAMBA: D_MAMBA, **FAMILY_PARAMS}
+DEPTH = {"mixtral-8x7b": MIXTRAL_LAYERS}
+# generate: B prompts of S tokens, new tokens, cache_len (None: the server's
+# default; mixtral's attention keeps its ring of 4096 rows whatever it is)
+FAMILY_GEN = {"moonshot-v1-16b-a3b": dict(B=4, S=1024, new=64, cache_len=1088),
+              "mixtral-8x7b": dict(B=1, S=6144, new=64, cache_len=None),
+              "internvl2-2b": dict(B=4, S=768, new=64, cache_len=1088)}
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_GEN = dict(B=4, S=64, new=9)  # prefill, then 8 decode steps
+JAMBA_ARGS = ["--arch", JAMBA, "--reduced", "--backend", "fused", "--scheme", "heter_aware",
+              "--s", str(S), "--m", str(M), "--straggler", "fault", "--steps", "1"]
+HUBERT_ARGS = ["--arch", "hubert-xlarge", *SLICE_ARGS[2:]]
+# flash_attention at the families' prefill shapes (B, S, H, K, hd, window):
+# moonshot (hd 128, no GQA), mixtral (GQA 4, window 4096 over 6144 tokens),
+# internvl2 (GQA 2)
+FLASH_FAMILY = ((4, 1024, 16, 16, 128, None), (1, 6144, 32, 8, 128, 4096),
+                (4, 1024, 16, 8, 128, None))
 NO_LIBRARY = ("no single PyTorch call computes it: torch.mv takes no int8 input, "
               "and PyTorch has no fused reduce + int8 quantize")
 NO_SSD_LIBRARY = "no single PyTorch call computes an SSD scan"
@@ -524,7 +587,7 @@ def launch_counters() -> dict:
 
 
 def main_path(torch, label: str, args: list[str], expected, on_step=None,
-              n_params_want: int = D_FULL, profile: bool = False) -> dict:
+              n_params_want: int = D_FULL, profile: bool = False, steps: int = STEPS) -> dict:
     """Phase 5: one slice command in process, every kernel's count set to 0
     just before it and read just after, then, with ``profile``, one more
     step under ``torch.profiler``.  ``expected(steps_taken)`` maps each
@@ -559,8 +622,8 @@ def main_path(torch, label: str, args: list[str], expected, on_step=None,
         log(f"  step {i}: {out['step_s'][i]:.4f} s, loss {h['loss']:.5f} grad_norm {h['grad_norm']:.4f} "
             f"n_used {h['n_used']:.0f} n_stragglers {h['n_stragglers']:.0f} "
             f"sim_iter_time {h['sim_iter_time']:.3f} exact_fraction {h['exact_fraction']:.2f}")
-    if len(hist) != STEPS:
-        raise AssertionError(f"ran {len(hist)} steps, expected {STEPS}")
+    if len(hist) != steps:
+        raise AssertionError(f"ran {len(hist)} steps, expected {steps}")
     for i, (h, e) in enumerate(zip(hist, expect)):
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
             raise AssertionError(f"step {i}: non-finite loss or grad norm")
@@ -580,8 +643,8 @@ def main_path(torch, label: str, args: list[str], expected, on_step=None,
     log(f"main path ({label}) ok: every loss finite, exact decode every step, "
         f"launches {launches} == expected for {steps_taken} steps")
     losses = [h["loss"] for h in hist]
-    steady = statistics.median(out["step_s"][1:])
-    log(f"main path ({label}) step time: median of steps 1-{STEPS - 1} {steady:.4f} s "
+    steady = statistics.median(out["step_s"][1:] or out["step_s"])
+    log(f"main path ({label}) step time: median of steps 1-{steps - 1} {steady:.4f} s "
         f"(step 0 {out['step_s'][0]:.4f} s includes the first batch and warm-up)")
     breakdown = profile_step(torch, out, label) if profile else {}
     del out
@@ -1245,6 +1308,22 @@ def check_flash_vs_plain(torch) -> dict:
             raise AssertionError(f"flash_attention at the full prefill shape B={B} S={S_}")
         full[f"B{B}_S{S_}"] = err
         del q, k, v, out, ref
+    for B, S_, H, K, hd, window in FLASH_FAMILY:
+        q, k, v = flash_inputs(torch, B, S_, H, K, hd, torch.bfloat16, S_ + H + K)
+        out = fa.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_torch(q, k, v, causal=True, window=window)
+        err = float((out.float() - ref.float()).abs().max())
+        finite = bool(torch.isfinite(out.float()).all())
+        ok = finite and bool(torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol))
+        log(f"check flash_attention family prefill B={B} S={S_} H={H} K={K} hd={hd} bf16 causal "
+            f"window={window}: finite {finite}, max_abs_err {err:.3e} (atol {atol:g}, rtol "
+            f"{rtol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention at the family shape B={B} S={S_} H={H} K={K}")
+        full[f"B{B}_S{S_}_H{H}_K{K}_hd{hd}_w{window}"] = err
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     return dict(cases=len(cases) + len(full), worst_small=worst, full=full)
 
@@ -1302,15 +1381,69 @@ def time_flash(torch) -> dict:
             f"plain {plain_ms:.4f} ms, kernel max_abs_err {err:.3e}")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return dict(shapes[0], shapes=shapes)
+    return dict(shapes[0], shapes=shapes, family_shapes=time_flash_family(torch))
 
 
-def greedy_trace(torch, model, params, tokens, steps: int, cache_len: int):
+def time_flash_family(torch) -> list[dict]:
+    """Phase 4, flash attention at the families' prefill shapes
+    (FLASH_FAMILY), bf16, causal, timed as :func:`time_flash` times (turns
+    of FLASH_BATCH launches with the library call).  A window's bound
+    counts only the pairs inside it: 4 * hd * B * H * sum_i min(i + 1, W)
+    operations.  The library call takes the window as a boolean mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    out = []
+    for B, S_, H, K, hd, window in FLASH_FAMILY:
+        q, k, v = flash_inputs(torch, B, S_, H, K, hd, torch.bfloat16, 98)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        kern = lambda: fa.flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(S_, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        ref = fa.flash_attention_torch(q, k, v, causal=True, window=window)
+        err = float((kern().float() - ref.float()).abs().max())
+        lib_err = float((lib().transpose(1, 2).float() - ref.float()).abs().max())
+        del ref
+        turns = [time_cuda(f, batch=FLASH_BATCH) for f in (kern, lib, lib, kern)]
+        plain_ms = time_cuda(lambda: fa.flash_attention_torch(q, k, v, causal=True, window=window),
+                             reps=3, warmup=1)
+        W = S_ if window is None else window
+        pairs = sum(min(i + 1, W) for i in range(S_))
+        flops = 4 * hd * B * H * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+        ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        out.append(dict(B=B, S=S_, H=H, K=K, hd=hd, window=window, ms=ms, library_ms=library_ms,
+                        plain_ms=plain_ms, turns_ms=turns, bound_ms=bound_ms, bound_by=bound_by,
+                        max_abs_err=err, library_max_abs_err=lib_err, flops=flops,
+                        nbytes=nbytes))
+        log(f"time flash_attention family B={B} S={S_} H={H} K={K} hd={hd} window={window} bf16 "
+            f"causal: kernel {ms:.4f} ms ({turns[0]:.4f}, {turns[3]:.4f}; "
+            f"{flops / ms / 1e9:.2f} TFLOP/s of the least {flops / 1e9:.3f} GFLOP; bound "
+            f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it), "
+            f"scaled_dot_product_attention {library_ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}; "
+            f"its max_abs_err {lib_err:.3e}), kernel / library {ms / library_ms:.2f}; plain "
+            f"{plain_ms:.4f} ms, kernel max_abs_err {err:.3e}")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out
+
+
+def greedy_trace(torch, model, params, tokens, steps: int, cache_len: int, extra=None):
     """LMServer.generate's loop (no EOS, no budgets) with each step's top-2
     logit gap and max|logit| kept: tokens, gaps, maxima as (B, steps)
-    numpy arrays.  Token i is the argmax of the i-th logits."""
+    numpy arrays.  Token i is the argmax of the i-th logits.  ``extra``:
+    more prefill inputs (a vision model's patches)."""
     toks, gaps, tops = [], [], []
-    logits, cache = model.prefill(params, {"tokens": tokens}, cache_len=cache_len)
+    logits, cache = model.prefill(params, {"tokens": tokens, **(extra or {})},
+                                  cache_len=cache_len)
     for i in range(steps):
         lf = logits.float()
         top2 = lf.topk(2, dim=-1).values
@@ -1324,9 +1457,9 @@ def greedy_trace(torch, model, params, tokens, steps: int, cache_len: int):
     return stack(toks), stack(gaps), stack(tops)
 
 
-def tokens_agree(label: str, got, ref, gaps, tops) -> dict:
+def tokens_agree(label: str, got, ref, gaps, tops, limit: float = NEAR_TIE) -> dict:
     """``got`` against ``ref`` row by row: equal, or parting first where the
-    reference's top-2 gap is at most NEAR_TIE x its max|logit| (a near-tie
+    reference's top-2 gap is at most ``limit`` x its max|logit| (a near-tie
     that a last-bit difference may flip).  Raises otherwise."""
     import numpy as np
 
@@ -1338,9 +1471,9 @@ def tokens_agree(label: str, got, ref, gaps, tops) -> dict:
         i = int(diff[0])
         rel = float(gaps[b, i] / max(tops[b, i], 1e-30))
         log(f"  {label} row {b}: tokens part at step {i} of {ref.shape[1]}, the reference's "
-            f"top-2 gap there {gaps[b, i]:.3e} = {rel:.3e} of max|logit| (limit {NEAR_TIE:g}) "
-            f"{'ok (near-tie)' if rel <= NEAR_TIE else 'FAIL'}")
-        if rel > NEAR_TIE:
+            f"top-2 gap there {gaps[b, i]:.3e} = {rel:.3e} of max|logit| (limit {limit:g}) "
+            f"{'ok (near-tie)' if rel <= limit else 'FAIL'}")
+        if rel > limit:
             raise AssertionError(f"{label}: row {b} parts at step {i} with no near-tie")
         parted.append(dict(row=b, step=i, rel_gap=rel))
     log(f"  {label}: {ref.shape[0] - len(parted)} of {ref.shape[0]} rows equal over "
@@ -1349,32 +1482,48 @@ def tokens_agree(label: str, got, ref, gaps, tops) -> dict:
 
 
 def full_model(torch, arch: str, dtype: str | None = None, **impl):
-    """The full-width model from seed 0, in the config's dtype (or
-    ``dtype``), on the card; with its parameter count checked."""
+    """The full-width model (at ``DEPTH``'s depth where memory cuts it)
+    from seed 0, in the config's dtype (or ``dtype``), on the card; its
+    parameter count checked against ``PARAMS``.  Returns (cfg, model,
+    params, info): the count, the init's seconds and peak memory, and the
+    depth cut's note."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
 
     cfg = get_config(arch)
+    cut = ""
+    if arch in DEPTH:
+        cut = f"reduced: depth {DEPTH[arch]}/{cfg.n_layers}, memory"
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    model = build_model(cfg, **impl)
     dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, **impl)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    want = D_FULL if arch == ARCH else D_MAMBA
-    if model.param_count(params) != want:
-        raise AssertionError(f"{arch}: {model.param_count(params)} parameters, expected {want}")
-    return cfg, model, params
+    torch.cuda.synchronize()
+    info = dict(n_params=model.param_count(params), init_s=time.perf_counter() - t0,
+                init_peak_gib=torch.cuda.max_memory_allocated() / 2**30, cut=cut or None)
+    log(f"{arch}{f' ({cut})' if cut else ''}: {info['n_params']} parameters ({cfg.dtype}) from "
+        f"seed 0 in {info['init_s']:.2f} s, peak memory of the init {info['init_peak_gib']:.2f} GiB")
+    if info["n_params"] != PARAMS[arch]:
+        raise AssertionError(f"{arch}: {info['n_params']} parameters, expected {PARAMS[arch]}")
+    return cfg, model, params, info
 
 
-def serve_path(torch, arch: str) -> dict:
-    """Phase 7: serving at full width, random bf16 weights from seed 0.
-    ``LMServer.generate`` on B=4 prompts of 1024 tokens, 64 new, then
-    ``ServingEngine.run`` on the trace of examples/serve_lm.py at real
-    prompt lengths, with every kernel's launch count set to 0 just before
-    each and read just after.  The prefill kernel (flash attention for
-    smollm, the SSD scan for mamba2) launches once per layer and prefill
-    call and never in decode; every request completes with tokens in
-    [0, vocab).  One more generate prefill, profiled outside the counted
+def serve_path(torch, arch: str, gen: dict = GEN, engine: bool = True) -> dict:
+    """Phases 7 and 10 (a)-(c): serving at full width, random bf16 weights
+    from seed 0.  ``LMServer.generate`` on ``gen``'s B prompts of S tokens
+    (behind a vision model's patch embeddings, a seeded normal x 0.02),
+    then, with ``engine``, ``ServingEngine.run`` on the trace of
+    examples/serve_lm.py at real prompt lengths, with every kernel's launch
+    count set to 0 just before each and read just after.  Each prefill
+    kernel (flash attention, the SSD scan) launches once per layer that
+    runs it and prefill call and never in decode; every call's logits are
+    finite; every request completes with tokens in [0, vocab).  With
+    ``engine``, one more generate prefill, profiled outside the counted
     windows, gives the device's busy time against the prefill's wall time."""
     import numpy as np
 
@@ -1383,30 +1532,42 @@ def serve_path(torch, arch: str) -> dict:
     from repro_torch.serve import ReplicaPool, Request, ServingEngine
     from repro_torch.train.serve import LMServer
 
-    cfg, model, params = full_model(torch, arch)
-    kernel = "flash_attention" if arch == ARCH else "ssd_scan"
-    layers = SMOLLM_LAYERS if arch == ARCH else MAMBA_LAYERS
+    cfg, model, params, info = full_model(torch, arch)
+    name = f"{arch} ({info['cut']})" if info["cut"] else arch
+    per_prefill = {"flash_attention": sum(spec.mixer == "attn" for spec in model.plan),
+                   "ssd_scan": sum(spec.mixer == "mamba" for spec in model.plan)}
     counters = launch_counters()
     server = LMServer(model)
     calls = {"prefill": [], "decode": [], "prefill_launches": 0, "decode_launches": 0}
-    server._prefill = timed(torch, server._prefill, calls, "prefill", counters)
-    server._decode = timed(torch, server._decode, calls, "decode", counters)
+    finite: list[bool] = []
+
+    def checked(fn):
+        def wrapped(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            finite.append(bool(torch.isfinite(logits.float()).all()))
+            return logits, cache
+        return wrapped
+
+    server._prefill = timed(torch, checked(server._prefill), calls, "prefill", counters)
+    server._decode = timed(torch, checked(server._decode), calls, "decode", counters)
     rng = np.random.default_rng(0)
-    prompts = rng.integers(0, cfg.vocab, (GEN["B"], GEN["S"])).astype(np.int32)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (gen["B"], gen["S"])).astype(np.int32)}
+    if cfg.frontend == "vision":
+        batch["patches"] = (rng.standard_normal((gen["B"], cfg.n_patches, cfg.d_model))
+                            * 0.02).astype(np.float32)
 
     def check(label, want_prefills, toks, peak, wall):
         launches = {name: fn.launches for name, fn in counters.items()}
-        want = {name: 0 for name in counters}
-        want[kernel] = layers * want_prefills
+        want = {k: per_prefill.get(k, 0) * want_prefills for k in counters}
         in_range = bool(((toks >= 0) & (toks < cfg.vocab)).all())
         ok = (launches == want and len(calls["prefill"]) == want_prefills and in_range
-              and calls["decode_launches"] == 0)
-        log(f"serve {arch} {label}: {len(calls['prefill'])} prefill calls, launches {launches} "
+              and calls["decode_launches"] == 0 and all(finite))
+        log(f"serve {name} {label}: {len(calls['prefill'])} prefill calls, launches {launches} "
             f"(expected {want}), kernel launches during decode {calls['decode_launches']}, "
-            f"tokens in [0, {cfg.vocab}) {in_range}, peak memory {peak / 2**30:.2f} GiB, "
-            f"{wall:.2f} s wall {'ok' if ok else 'FAIL'}")
+            f"every call's logits finite {all(finite)}, tokens in [0, {cfg.vocab}) {in_range}, "
+            f"peak memory {peak / 2**30:.2f} GiB, {wall:.2f} s wall {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"serve {arch} {label}: launches or tokens wrong")
+            raise AssertionError(f"serve {arch} {label}: launches, logits or tokens wrong")
         return launches
 
     # LMServer.generate
@@ -1415,25 +1576,39 @@ def serve_path(torch, arch: str) -> dict:
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    gen_toks = server.generate(params, {"tokens": prompts}, GEN["new"], cache_len=GEN["cache_len"])
+    gen_toks = server.generate(params, batch, gen["new"], cache_len=gen["cache_len"])
     torch.cuda.synchronize()
     gen_wall = time.perf_counter() - t0
-    gen_launches = check("LMServer.generate", 1, gen_toks, torch.cuda.max_memory_allocated(),
-                         gen_wall)
-    if gen_toks.shape != (GEN["B"], GEN["new"]):
+    gen_peak = torch.cuda.max_memory_allocated()
+    gen_launches = check("LMServer.generate", 1, gen_toks, gen_peak, gen_wall)
+    if gen_toks.shape != (gen["B"], gen["new"]):
         raise AssertionError(f"generate returned {gen_toks.shape}")
     gen_prefill_ms = calls["prefill"][0] * 1e3
     gen_decode_ms = statistics.median(calls["decode"]) * 1e3
-    log(f"serve {arch} generate B={GEN['B']} S={GEN['S']} new={GEN['new']}: prefill "
-        f"{gen_prefill_ms:.2f} ms, decode step median {gen_decode_ms:.2f} ms, "
+    log(f"serve {name} generate B={gen['B']} S={gen['S']}"
+        f"{' + ' + str(cfg.n_patches) + ' patches' if 'patches' in batch else ''} "
+        f"new={gen['new']} cache_len {gen['cache_len']}"
+        f"{' window ' + str(cfg.window) if cfg.window else ''}: prefill {gen_prefill_ms:.2f} ms, "
+        f"decode step median {gen_decode_ms:.2f} ms over {len(calls['decode'])}, "
         f"{gen_toks.size / gen_wall:.1f} generated tokens per wall second")
+    res = dict(
+        init=info,
+        generate=dict(launches=gen_launches, prefill_ms=gen_prefill_ms,
+                      decode_step_ms=gen_decode_ms, tokens_per_wall_s=gen_toks.size / gen_wall,
+                      wall_s=gen_wall, peak_gib=gen_peak / 2**30),
+        gen=gen, gen_tokens=gen_toks, batch=batch)
+    if not engine:
+        del server, model, params
+        torch.cuda.empty_cache()
+        return res
     # the same prefill once more under torch.profiler, outside the counted
     # windows: the device's busy time and the prefill kernel's part of it,
     # against the unprofiled prefill's wall time
-    dev_prompts = torch.as_tensor(prompts, device=params["embed"].device)
+    kernel = "flash_attention" if per_prefill["flash_attention"] else "ssd_scan"
+    dev_batch = {k: torch.as_tensor(v, device=params["embed"].device) for k, v in batch.items()}
     with torch.inference_mode():
         split = device_split(torch, lambda: model.prefill(
-            params, {"tokens": dev_prompts}, cache_len=GEN["cache_len"]), 1)
+            params, dev_batch, cache_len=gen["cache_len"]), 1)
     busy = sum(split.values())
     # the kernels' device names: flash_bf16_kernel, ssd_scan_*_kernel
     kernel_ms = sum(v for k, v in split.items() if k.startswith(kernel.split("_")[0]))
@@ -1442,6 +1617,7 @@ def serve_path(torch, arch: str) -> dict:
         f"{kernel} {kernel_ms:.2f} ms of it ({kernel_ms / busy:.1%}); the largest: "
         + ", ".join(f"{k} {v:.2f} ms"
                     for k, v in sorted(split.items(), key=lambda kv: -kv[1])[:5]))
+    res["generate"].update(prefill_device_busy_ms=busy, prefill_kernel_device_ms=kernel_ms)
 
     # ServingEngine.run on the trace of examples/serve_lm.py
     tr = TRACE
@@ -1456,17 +1632,17 @@ def serve_path(torch, arch: str) -> dict:
                     max_new_tokens=int(trng.integers(tr["new"][0], tr["new"][1] + 1)),
                     arrival_t=float(arrivals[i]))
             for i in range(tr["n"])]
-    engine = ServingEngine(server, params, n_slots=tr["n_slots"], cache_len=tr["cache_len"],
-                           replicas=pool, decode_dt=None)
+    eng = ServingEngine(server, params, n_slots=tr["n_slots"], cache_len=tr["cache_len"],
+                        replicas=pool, decode_dt=None)
     calls.update(prefill=[], decode=[], prefill_launches=0, decode_launches=0)
     # the engine's batched decode step, timed and counted alike
-    engine.batch._step = timed(torch, engine.batch._step, calls, "decode", counters)
+    eng.batch._step = timed(torch, eng.batch._step, calls, "decode", counters)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    comps, metrics = engine.run(reqs)
+    comps, metrics = eng.run(reqs)
     torch.cuda.synchronize()
     eng_wall = time.perf_counter() - t0
     all_toks = np.concatenate([c.tokens for c in comps]) if comps else np.zeros(0, np.int32)
@@ -1479,23 +1655,17 @@ def serve_path(torch, arch: str) -> dict:
     summ = metrics.summary()
     ttft_all = [r.prefill_all_done_t - r.arrival_t + (r.first_token_t - r.prefill_done_t)
                 for r in metrics.records]
-    res = dict(
-        generate=dict(launches=gen_launches, prefill_ms=gen_prefill_ms,
-                      prefill_device_busy_ms=busy, prefill_kernel_device_ms=kernel_ms,
-                      decode_step_ms=gen_decode_ms, tokens_per_wall_s=gen_toks.size / gen_wall,
-                      wall_s=gen_wall),
-        engine=dict(launches=eng_launches, prefill_calls=len(calls["prefill"]),
-                    prefill_ms_median=statistics.median(calls["prefill"]) * 1e3,
-                    decode_step_ms_median=statistics.median(calls["decode"]) * 1e3,
-                    decode_steps=len(calls["decode"]), tokens=int(all_toks.size),
-                    tokens_per_wall_s=all_toks.size / eng_wall, wall_s=eng_wall,
-                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                    ttft_p50_s=summ["ttft_p50_s"], ttft_p99_s=summ["ttft_p99_s"],
-                    ttft_wait_for_all_p50_s=float(np.percentile(ttft_all, 50)),
-                    ttft_wait_for_all_p99_s=float(np.percentile(ttft_all, 99)),
-                    prompt_tokens=int(sum(len(r.tokens) for r in reqs))),
-        gen_tokens=gen_toks, prompts=prompts)
-    e = res["engine"]
+    res["engine"] = e = dict(
+        launches=eng_launches, prefill_calls=len(calls["prefill"]),
+        prefill_ms_median=statistics.median(calls["prefill"]) * 1e3,
+        decode_step_ms_median=statistics.median(calls["decode"]) * 1e3,
+        decode_steps=len(calls["decode"]), tokens=int(all_toks.size),
+        tokens_per_wall_s=all_toks.size / eng_wall, wall_s=eng_wall,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        ttft_p50_s=summ["ttft_p50_s"], ttft_p99_s=summ["ttft_p99_s"],
+        ttft_wait_for_all_p50_s=float(np.percentile(ttft_all, 50)),
+        ttft_wait_for_all_p99_s=float(np.percentile(ttft_all, 99)),
+        prompt_tokens=int(sum(len(r.tokens) for r in reqs)))
     log(f"serve {arch} ServingEngine: {tr['n']} requests ({e['prompt_tokens']} prompt tokens, "
         f"{e['tokens']} generated) in {eng_wall:.2f} s wall: prefill per request median "
         f"{e['prefill_ms_median']:.2f} ms, decode step median {e['decode_step_ms_median']:.2f} ms "
@@ -1505,7 +1675,7 @@ def serve_path(torch, arch: str) -> dict:
         f"s p99 {e['ttft_wait_for_all_p99_s']:.3f} s; peak memory {e['peak_gib']:.2f} GiB; "
         "device busy share not measured (CUDA events give elapsed time, not busy time, and no "
         "profiled step is added)")
-    del engine, server, model, params
+    del eng, server, model, params
     torch.cuda.empty_cache()
     return res
 
@@ -1527,20 +1697,87 @@ def timed(torch, fn, calls: dict, key: str, counters: dict):
     return wrapped
 
 
-def serve_cross_check(torch, arch: str, served: dict) -> dict:
-    """Phase 8, the kernel on the serving path against the plain version,
-    with TF32 off.  In bf16 (not held: the kernel keeps p in f32, the plain
-    model path rounds it): the last-position logits and phase 7's generate
-    tokens against ``attn_impl`` / ``ssd_impl="torch"``; beside them, the
-    plain path against itself with the embedding one bf16 ulp up, and both
-    bf16 paths' logits and tokens against the f32 plain model's.  In f32, held:
-    prefill's last-position logits within 1e-4 of max|logit|; the cache
-    leaves that no kernel touched (layer 0's k and v, or its conv inputs)
-    equal, the others within 1e-4 (k, v, conv) or 1e-3 (the SSD state, as
-    the full-layer scan check) of their max; ``generate``'s tokens equal,
-    and ``ServingEngine``'s continuous batch equal to sequential B=1 decode
-    on the trace of tests/test_serving.py scaled to 256-512 tokens, each
-    under the near-tie rule."""
+def serve_cross_check(torch, arch: str, served: dict, f32: bool = True) -> dict:
+    """Phases 8 and 10 (a)-(c): the kernels on the serving path against the
+    plain versions (``attn_impl`` and ``ssd_impl="torch"``) on the weights
+    :func:`serve_path` served, with TF32 off.  In bf16, printed, not held
+    (the kernels keep p in f32 where the plain path rounds it, and in a MoE
+    one ulp of a hidden state can flip an expert): the last-position logits
+    and the served generate tokens against the plain path's, beside the
+    plain path against itself with every embedding entry one bf16 spacing
+    up; held: every logit finite.  With ``f32``, the model in f32 at full
+    width through :func:`f32_serve_check`, on the trace of
+    tests/test_serving.py scaled to 256-512 tokens, and both bf16 paths'
+    logits and tokens against the f32 plain model's."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.serve import LMServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = served["gen"]
+    new, L = g["new"], g["cache_len"] or g["S"] + g["new"]
+    cfg, kernel, params, _ = full_model(torch, arch)
+    plain = build_model(cfg, attn_impl="torch", ssd_impl="torch")
+    dev = params["embed"].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in served["batch"].items()}
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    lk16, _ = kernel.prefill(params, batch, cache_len=L)
+    lt16, _ = plain.prefill(params, batch, cache_len=L)
+    finite = bool(torch.isfinite(lk16.float()).all() and torch.isfinite(lt16.float()).all())
+    bf16_rel = rel(lk16, lt16)
+    # the plain path against itself with every embedding entry moved by one
+    # bf16 spacing: how far one ulp at the input carries through the depth
+    nudged = dict(params, embed=(params["embed"].view(torch.int16) + 1).view(torch.bfloat16))
+    lu16, _ = plain.prefill(nudged, batch, cache_len=L)
+    ulp_rel = rel(lu16, lt16)
+    del nudged, lu16
+    plain_toks = LMServer(plain).generate(params, batch, new, cache_len=g["cache_len"])
+    agree = float((plain_toks == served["gen_tokens"]).mean())
+    rows_equal = int((plain_toks == served["gen_tokens"]).all(1).sum())
+    log(f"cross-check serve {arch} bf16 (reported, not held): last-position logits through the "
+        f"kernels vs the plain versions max|diff|/max|logit| {bf16_rel:.3e}, beside the plain "
+        f"path against itself with the embedding one bf16 ulp up {ulp_rel:.3e}; generate tokens "
+        f"agree in {agree:.1%} of {plain_toks.size}, {rows_equal} of {plain_toks.shape[0]} rows "
+        f"equal; every logit finite {finite} (held)")
+    if not finite:
+        raise AssertionError(f"{arch}: non-finite bf16 prefill logits")
+    out = dict(bf16_logit_rel=bf16_rel, bf16_token_agreement=agree, bf16_rows_equal=rows_equal,
+               bf16_one_ulp_logit_rel=ulp_rel)
+    del kernel, plain
+    if f32:
+        params = {k: v.float() for k, v in params.items()}
+        res32, lt, ref = f32_serve_check(
+            torch, f"cross-check serve {arch} f32", dataclasses.replace(cfg, dtype="float32"),
+            params, batch, new, L, [32 * n for n in (8, 14, 11, 9, 16)])
+        # both bf16 paths against the f32 model: a kernel fault would put
+        # the kernel's path further from f32 than the plain one
+        to_f32 = dict(kernel_logit_rel=rel(lk16, lt), plain_logit_rel=rel(lt16, lt),
+                      kernel_token_agreement=float((served["gen_tokens"] == ref).mean()),
+                      plain_token_agreement=float((plain_toks == ref).mean()))
+        log(f"cross-check serve {arch} bf16 against f32 plain (reported, not held): "
+            f"last-position logits max|diff|/max|logit| kernel path "
+            f"{to_f32['kernel_logit_rel']:.3e}, plain path {to_f32['plain_logit_rel']:.3e}; "
+            f"generate tokens agree kernel path {to_f32['kernel_token_agreement']:.1%}, plain "
+            f"path {to_f32['plain_token_agreement']:.1%} of {ref.size}")
+        out.update(bf16_vs_f32=to_f32, **{f"f32_{k}": v for k, v in res32.items()})
+    del params, lk16, lt16
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_serve_check(torch, label: str, cfg, params, batch: dict, new: int, L: int, lens):
+    """The held f32 serving checks, TF32 off: prefill through the kernels
+    against the plain versions, its last-position logits within 1e-4 of
+    max|logit| and each cache leaf within 1e-4 of its max (the SSD state
+    1e-3, as the full-layer scan check), layer 0's leaves that no kernel
+    touched (k and v, or the conv inputs) equal; ``generate``'s tokens
+    equal; and given ``lens`` (the engine is tokens-only),
+    ``ServingEngine``'s continuous batch of prompts of those lengths equal
+    to sequential B=1 decode; tokens under the near-tie rule.  Returns
+    (results, the plain prefill's logits, the plain generate tokens)."""
     import numpy as np
 
     from repro_torch.models.lm import build_model
@@ -1549,86 +1786,189 @@ def serve_cross_check(torch, arch: str, served: dict) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    key = "attn_impl" if arch == ARCH else "ssd_impl"
-    new, L = GEN["new"], GEN["cache_len"]
-    cfg, plain, params = full_model(torch, arch, **{key: "torch"})
-    dev = params["embed"].device
-    prompts = torch.as_tensor(served["prompts"], device=dev)
-    kernel = build_model(cfg)
-    lk16, _ = kernel.prefill(params, {"tokens": prompts}, cache_len=L)
-    lt16, _ = plain.prefill(params, {"tokens": prompts}, cache_len=L)
-    def rel(a, b):
-        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
-
-    bf16_rel = rel(lk16, lt16)
-    # the plain path against itself with every embedding entry moved by one
-    # bf16 spacing: how far one ulp at the input carries through the depth
-    nudged = dict(params, embed=(params["embed"].view(torch.int16) + 1).view(torch.bfloat16))
-    lu16, _ = plain.prefill(nudged, {"tokens": prompts}, cache_len=L)
-    ulp_rel = rel(lu16, lt16)
-    del nudged, lu16
-    plain_toks = LMServer(plain).generate(params, {"tokens": prompts}, new, cache_len=L)
-    agree = float((plain_toks == served["gen_tokens"]).mean())
-    rows_equal = int((plain_toks == served["gen_tokens"]).all(1).sum())
-    log(f"cross-check serve {arch} bf16 (reported, not held): last-position logits through the "
-        f"kernel vs {key}='torch' max|diff|/max|logit| {bf16_rel:.3e}; generate tokens agree in "
-        f"{agree:.1%} of {plain_toks.size}, {rows_equal} of {plain_toks.shape[0]} rows equal; "
-        f"plain vs plain with the embedding one bf16 ulp up {ulp_rel:.3e}")
-    params = {k: v.float() for k, v in params.items()}
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    kernel, plain = build_model(cfg32), build_model(cfg32, **{key: "torch"})
-    lk, ck = kernel.prefill(params, {"tokens": prompts}, cache_len=L)
-    lt, ct = plain.prefill(params, {"tokens": prompts}, cache_len=L)
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="torch", ssd_impl="torch")
+    dev = batch["tokens"].device
+    lk, ck = kernel.prefill(params, batch, cache_len=L)
+    lt, ct = plain.prefill(params, batch, cache_len=L)
     logit_rel = float((lk - lt).abs().max() / lt.abs().max())
-    untouched = ("layers.0.k", "layers.0.v") if arch == ARCH else ("layers.0.conv",)
+    untouched = [n for n in ("layers.0.k", "layers.0.v", "layers.0.conv") if n in ct]
     first_equal = all(torch.equal(ck[n][0], ct[n][0]) for n in untouched)
     leaf_rel = {n: float((ck[n] - ct[n]).abs().max() / ct[n].abs().max().clamp(min=1e-30))
                 for n in ct if n != "pos"}
     leaf_ok = all(v <= (1e-3 if n.endswith(".h") else 1e-4) for n, v in leaf_rel.items())
-    ok = logit_rel <= 1e-4 and first_equal and leaf_ok and torch.equal(ck["pos"], ct["pos"])
-    log(f"cross-check serve {arch} f32 prefill B={GEN['B']} S={GEN['S']}: last-position logits "
-        f"max|diff|/max|logit| {logit_rel:.3e} (limit 1e-4); layer 0's {', '.join(untouched)} "
-        f"(no kernel before them) equal {first_equal}; each cache leaf's max|diff|/max: "
-        + ", ".join(f"{n} {v:.2e}" for n, v in leaf_rel.items())
+    ok = (logit_rel <= 1e-4 and bool(untouched) and first_equal and leaf_ok
+          and torch.equal(ck["pos"], ct["pos"]))
+    B, S_ = batch["tokens"].shape
+    log(f"{label} prefill B={B} S={S_}{' + patches' if 'patches' in batch else ''}: "
+        f"last-position logits max|diff|/max|logit| {logit_rel:.3e} (limit 1e-4); layer 0's "
+        f"{', '.join(untouched)} (no kernel before them) equal {first_equal}; each cache leaf's "
+        "max|diff|/max: " + ", ".join(f"{n} {v:.2e}" for n, v in leaf_rel.items())
         + f" (limits 1e-4, the SSD state 1e-3) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{arch} f32 prefill through the kernel disagrees with plain")
-    del ck, ct
-    got = LMServer(kernel).generate(params, {"tokens": prompts}, new, cache_len=L)
-    ref, gaps, tops = greedy_trace(torch, plain, params, prompts, new, L)
-    gen_agree = tokens_agree(f"cross-check serve {arch} f32 generate, kernel vs plain", got, ref,
-                             gaps, tops)
-    # both bf16 paths against the f32 model: a kernel fault would put the
-    # kernel's path further from f32 than the plain one
-    to_f32 = dict(kernel_logit_rel=rel(lk16, lt), plain_logit_rel=rel(lt16, lt),
-                  kernel_token_agreement=float((served["gen_tokens"] == ref).mean()),
-                  plain_token_agreement=float((plain_toks == ref).mean()))
-    log(f"cross-check serve {arch} bf16 against f32 plain (reported, not held): last-position "
-        f"logits max|diff|/max|logit| kernel path {to_f32['kernel_logit_rel']:.3e}, plain path "
-        f"{to_f32['plain_logit_rel']:.3e}; generate tokens agree kernel path "
-        f"{to_f32['kernel_token_agreement']:.1%}, plain path "
-        f"{to_f32['plain_token_agreement']:.1%} of {ref.size}")
-    del lk16, lt16
-    lens = [32 * n for n in (8, 14, 11, 9, 16)]
-    rng = np.random.default_rng(1)
-    reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)).astype(np.int32),
-                    max_new_tokens=7, arrival_t=0.02 * i) for i, n in enumerate(lens)]
-    comps, _ = ServingEngine(LMServer(kernel), params, n_slots=2, cache_len=max(lens) + 8,
-                             decode_dt=0.01).run(reqs)
-    batch_agree = []
-    for c, r in zip(comps, reqs):
-        ref, gaps, tops = greedy_trace(torch, kernel, params,
-                                       torch.as_tensor(r.tokens[None], device=dev), 7,
-                                       max(lens) + 8)
-        batch_agree.append(tokens_agree(
-            f"cross-check serve {arch} f32 continuous batch vs sequential, request {c.rid} "
-            f"({len(r.tokens)} tokens)", c.tokens[None], ref, gaps, tops))
-    del params, kernel, plain
+        raise AssertionError(f"{label}: prefill through the kernels disagrees with plain")
+    del lk, ck, ct
+    got = LMServer(kernel).generate(params, batch, new, cache_len=L)
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    ref, gaps, tops = greedy_trace(torch, plain, params, batch["tokens"], new, L, extra)
+    res = dict(logit_rel=logit_rel, cache_leaf_rel=leaf_rel,
+               generate=tokens_agree(f"{label} generate, kernels vs plain", got, ref, gaps, tops))
+    if lens:
+        rng = np.random.default_rng(1)
+        reqs = [Request(rid=i, tokens=rng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+                        max_new_tokens=7, arrival_t=0.02 * i) for i, n in enumerate(lens)]
+        comps, _ = ServingEngine(LMServer(kernel), params, n_slots=2, cache_len=max(lens) + 8,
+                                 decode_dt=0.01).run(reqs)
+        res["continuous_vs_sequential"] = []
+        for c, r in zip(comps, reqs):
+            one, gaps, tops = greedy_trace(torch, kernel, params,
+                                           torch.as_tensor(r.tokens[None], device=dev), 7,
+                                           max(lens) + 8)
+            res["continuous_vs_sequential"].append(tokens_agree(
+                f"{label} continuous batch vs sequential, request {c.rid} "
+                f"({len(r.tokens)} tokens)", c.tokens[None], one, gaps, tops))
+    return res, lt, ref
+
+
+def reduced_f32_check(torch, arch: str) -> dict:
+    """Phase 10 (f): the reduced config in f32 on the card through
+    :func:`f32_serve_check`: 4 prompts of 40 tokens (past mixtral's reduced
+    window of 16; behind internvl2's patches), 8 new, and, but for
+    internvl2, the continuous batch."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    cfg = get_config(arch).reduced()
+    dev = torch.device("cuda")
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(2)
+    B, S_, new = 4, 40, 8
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S_)).astype(np.int32),
+                                       device=dev)}
+    lens = (20, 40, 28, 33, 17)
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.n_patches, cfg.d_model)) * 0.02, dtype=torch.float32,
+            device=dev)
+        lens = None
+    L = S_ + new + (cfg.n_patches if lens is None else 0)
+    res, _, _ = f32_serve_check(torch, f"family f32 {arch} (reduced)", cfg, params, batch, new,
+                                L, lens)
+    del params
     torch.cuda.empty_cache()
-    return dict(bf16_logit_rel=bf16_rel, bf16_token_agreement=agree, bf16_rows_equal=rows_equal,
-                bf16_one_ulp_logit_rel=ulp_rel, bf16_vs_f32=to_f32,
-                f32_logit_rel=logit_rel, f32_cache_leaf_rel=leaf_rel, f32_generate=gen_agree,
-                f32_continuous_vs_sequential=batch_agree)
+    return res
+
+
+def jamba_path(torch, plain_launches) -> dict:
+    """Phase 10 (d): the reduced jamba (a period of 8 mixing mamba,
+    attention, dense and MoE layers) in bf16 on the card: ``generate``
+    (prefill and 8 decode steps) with the SSD scan launched once per mamba
+    layer and flash attention once per attention layer of the prefill call,
+    none in decode; against the same model with ``ssd_impl="torch",
+    attn_impl="torch"``, the prefill's last-position logits within
+    BF16_LOGIT_LIMIT of max|logit| and the tokens equal under the near-tie
+    rule at BF16_NEAR_TIE.  Then one ``fused`` coded training step through
+    the launcher (``--reduced``, f32) held to a CPU replay, with
+    ``LM.seq_losses`` wrapped for the step to split the step's own loss:
+    the sequence losses whose weighted sum is the step's loss are each the
+    plain model's cross-entropy of the same batch plus ``aux_coef`` x the
+    MoE load-balance term, which is finite and positive."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM, build_model
+    from repro_torch.train.serve import LMServer
+
+    g = JAMBA_GEN
+    cfg = dataclasses.replace(get_config(JAMBA).reduced(), dtype="bfloat16")
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    mamba_layers = sum(spec.mixer == "mamba" for spec in model.plan)
+    attn_layers = sum(spec.mixer == "attn" for spec in model.plan)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (g["B"], g["S"])).astype(np.int32)
+    counters = launch_counters()
+    server = LMServer(model)
+    calls = {"prefill": [], "decode": [], "prefill_launches": 0, "decode_launches": 0}
+    server._prefill = timed(torch, server._prefill, calls, "prefill", counters)
+    server._decode = timed(torch, server._decode, calls, "decode", counters)
+    for fn in counters.values():
+        fn.launches = 0
+    toks = server.generate(params, {"tokens": prompts}, g["new"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 0 for name in counters}
+    want.update(ssd_scan=mamba_layers, flash_attention=attn_layers)
+    in_range = bool(((toks >= 0) & (toks < cfg.vocab)).all())
+    ok = launches == want and calls["decode_launches"] == 0 and in_range
+    log(f"family {JAMBA} (reduced config, bf16: {cfg.n_layers} layers, {mamba_layers} mamba, "
+        f"{attn_layers} attention) generate B={g['B']} S={g['S']} new={g['new']}: launches "
+        f"{launches} (expected {want}), kernel launches during decode "
+        f"{calls['decode_launches']}, tokens in [0, {cfg.vocab}) {in_range} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("jamba generate: launches or tokens wrong")
+    plain = build_model(cfg, ssd_impl="torch", attn_impl="torch")
+    dprompts = torch.as_tensor(prompts, device=dev)
+    ref, gaps, tops = greedy_trace(torch, plain, params, dprompts, g["new"], g["S"] + g["new"])
+    lk, _ = model.prefill(params, {"tokens": dprompts}, cache_len=g["S"] + g["new"])
+    lt, _ = plain.prefill(params, {"tokens": dprompts}, cache_len=g["S"] + g["new"])
+    logit_rel = float((lk.float() - lt.float()).abs().max() / lt.float().abs().max())
+    ok = logit_rel <= BF16_LOGIT_LIMIT
+    log(f"family {JAMBA} bf16 prefill logits through the kernels vs the plain versions "
+        f"max|diff|/max|logit| {logit_rel:.3e} (limit {BF16_LOGIT_LIMIT:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("jamba bf16 prefill through the kernels disagrees with plain")
+    agree = tokens_agree(f"family {JAMBA} bf16 generate, kernels vs plain", toks, ref, gaps, tops,
+                         limit=BF16_NEAR_TIE)
+    del server, model, plain, params
+    torch.cuda.empty_cache()
+
+    # one fused coded training step, held to the CPU replay by main_path;
+    # the step's own loss split into cross-entropy and the MoE term
+    red = get_config(JAMBA).reduced()
+    n_red = build_model(red).param_count(build_model(red).init(torch.Generator().manual_seed(0),
+                                                               "cpu"))
+    plain32 = build_model(red, ssd_impl="torch", attn_impl="torch")
+    ce32 = build_model(dataclasses.replace(red, aux_coef=0.0), ssd_impl="torch",
+                       attn_impl="torch")
+    seq_losses, seen = LM.seq_losses, []
+
+    def split(self, params, batch):
+        out = seq_losses(self, params, batch)
+        if out.device.type == dev.type:  # the step on the card, not the CPU replay
+            with torch.no_grad():
+                p = {k: v.detach() for k, v in params.items()}
+                seen.append(dict(loss=float((out.detach() * batch["weight"]).sum()),
+                                 seq=out.detach().clone(), ce=seq_losses(ce32, p, batch),
+                                 aux=float(plain32.forward(p, batch)[1])))
+        return out
+
+    fused = lambda n: {**plain_launches(0), "ssd_scan": n * mamba_layers}  # noqa: E731
+    LM.seq_losses = split
+    try:
+        step = main_path(torch, "jamba fused", JAMBA_ARGS, fused, n_params_want=n_red, steps=1)
+    finally:
+        LM.seq_losses = seq_losses
+    if len(seen) != 1:
+        raise AssertionError(f"jamba: the step computed its sequence losses {len(seen)} times")
+    s, loss = seen[0], step["losses"][0]
+    gap = float((s["seq"] - s["ce"] - red.aux_coef * s["aux"]).abs().max())
+    limit = 1e-4 * float(s["seq"].abs().max())
+    ok = (abs(s["loss"] - loss) <= 1e-6 * abs(loss) and math.isfinite(s["aux"]) and s["aux"] > 0
+          and gap <= limit)
+    log(f"family {JAMBA} fused step: loss {loss:.6f}, the weighted sum of the sequence losses "
+        f"the step computed {s['loss']:.6f}; each sequence's loss minus the plain model's "
+        f"cross-entropy against aux_coef x aux = {red.aux_coef} x {s['aux']:.4f}: max|diff| "
+        f"{gap:.3e} (limit 1e-4 x max|loss| = {limit:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("jamba: the step's loss is not cross-entropy plus the MoE term")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_logit_rel_bf16=logit_rel, tokens=agree,
+                fused_step=step, aux=s["aux"], aux_gap=gap)
 
 
 def main() -> int:
@@ -1721,19 +2061,36 @@ def main() -> int:
     for arch in (ARCH, MAMBA):
         serve[arch] = serve_path(torch, arch)
         serve[arch]["cross_check"] = serve_cross_check(torch, arch, serve[arch])
-        del serve[arch]["gen_tokens"], serve[arch]["prompts"]
+        del serve[arch]["gen_tokens"], serve[arch]["batch"]
 
     # 9. the fault-tolerant trainer
     faults = fault_path(torch)
 
-    # 10. the kernels line, then the card
+    # 10. the model families: (a)-(c) full-width serving, (d) the reduced
+    # jamba, (e) hubert-xlarge's coded training, (f) the f32 checks
+    fam = {}
+    for arch, gen in FAMILY_GEN.items():
+        fam[arch] = serve_path(torch, arch, gen, engine=False)
+        fam[arch]["cross_check"] = serve_cross_check(torch, arch, fam[arch], f32=False)
+        del fam[arch]["gen_tokens"], fam[arch]["batch"]
+    jamba = jamba_path(torch, plain_launches)
+    hubert = main_path(torch, "hubert-xlarge spmd", HUBERT_ARGS, plain_launches,
+                       n_params_want=FAMILY_PARAMS["hubert-xlarge"])
+    # coded_reduce at hubert's wire, past 2^31 elements a stack, held to
+    # its plain version as at smollm's
+    hubert_reduce = [time_kernel(torch, cr, P, FAMILY_PARAMS["hubert-xlarge"], f"hubert {label}")
+                     for P, label in ((n_slots, "encode (P = n_slots)"), (M, "decode (P = m)"))]
+    fam_f32 = {arch: reduced_f32_check(torch, arch)
+               for arch in ("moonshot-v1-16b-a3b", "mixtral-8x7b", "internvl2-2b", JAMBA)}
+
+    # 11. the kernels line, then the card
     kernels = [{
         "name": "coded_reduce",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/coded_reduce.cu",
         "replaces": "src/repro/kernels/coded_reduce.py:150",
         "launches": run["launches"]["coded_reduce"],
-        "max_abs_err": max(enc["max_abs_err"], dec["max_abs_err"]),
+        "max_abs_err": max(t["max_abs_err"] for t in (enc, dec, *hubert_reduce)),
         "ms": enc["ms"], "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"], "library_ms": enc["library_ms"],
         "shape": f"f32 ({enc['P']}, {enc['D']}) -> ({enc['D']},), the per-worker encode",
@@ -1742,6 +2099,10 @@ def main() -> int:
         "launches_compressed_path": wire_run["launches"]["coded_reduce"],
         "launches_fault_path": faults["launches"]["coded_reduce"],
         "launches_resume": faults["resume_launches"]["coded_reduce"],
+        "launches_hubert": hubert["launches"]["coded_reduce"],
+        "hubert_shapes": [{k: t[k] for k in ("P", "D", "ms", "plain_ms", "bound_ms",
+                                             "library_ms", "max_abs_err")}
+                          for t in hubert_reduce],
         "checks_worst_scaled_err": worst,
     }, {
         "name": "coded_encode_int8",
@@ -1791,6 +2152,8 @@ def main() -> int:
         "launches_per_step": mamba_run["launches"]["ssd_scan"] / mamba_run["steps"],
         "launches_serving": {k: serve[MAMBA][k]["launches"]["ssd_scan"]
                              for k in ("generate", "engine")},
+        "launches_jamba": {"generate": jamba["launches"]["ssd_scan"],
+                           "fused_step": jamba["fused_step"]["launches"]["ssd_scan"]},
         "checks": ssd_check,
     }, {
         "name": "flash_attention",
@@ -1801,7 +2164,11 @@ def main() -> int:
                         for k in ("generate", "engine")),
         "launches_serving": {k: serve[ARCH][k]["launches"]["flash_attention"]
                              for k in ("generate", "engine")},
-        "max_abs_err": max(*(t["max_abs_err"] for t in tflash["shapes"]),
+        "launches_families": {**{a: fam[a]["generate"]["launches"]["flash_attention"]
+                                 for a in fam},
+                              JAMBA: jamba["launches"]["flash_attention"]},
+        "max_abs_err": max(*(t["max_abs_err"]
+                             for t in tflash["shapes"] + tflash["family_shapes"]),
                            flash_check["worst_small"], *flash_check["full"].values()),
         "ms": tflash["ms"], "plain_ms": tflash["plain_ms"], "bound_ms": tflash["bound_ms"],
         "bound_by": tflash["bound_by"], "library_ms": tflash["library_ms"],
@@ -1811,7 +2178,10 @@ def main() -> int:
                  f"({tflash['B']}, {tflash['S']}, {tflash['K']}, {tflash['hd']}) bf16, causal",
         "shapes": [{k: t[k] for k in ("B", "S", "ms", "library_ms", "plain_ms", "bound_ms",
                                       "turns_ms", "single_launch_ms", "library_single_launch_ms",
-                                      "max_abs_err")} for t in tflash["shapes"]],
+                                      "max_abs_err")} for t in tflash["shapes"]]
+        + [{k: t[k] for k in ("B", "S", "H", "K", "hd", "window", "ms", "library_ms", "plain_ms",
+                              "bound_ms", "bound_by", "turns_ms", "max_abs_err")}
+           for t in tflash["family_shapes"]],
         "route_by_dtype": {"bf16": "wgmma fed by TMA, P.V split bf16 hi + lo",
                            "f32": "f32 FMAs on the CUDA cores"},
         "hgmma_instructions": hgmma,
@@ -1826,6 +2196,11 @@ def main() -> int:
     for arch in (ARCH, MAMBA):
         log(f"summary: serve {arch} {json.dumps(serve[arch], default=str)}")
     log(f"summary: fault path {json.dumps(faults, default=str)}")
+    for arch, res in {**fam, JAMBA: jamba}.items():
+        log(f"summary: family {arch} {json.dumps(res, default=str)}")
+    log(f"summary: hubert-xlarge spmd step {hubert['step_s']:.4f} s (median), peak "
+        f"{hubert['peak_gib']:.2f} GiB, losses {hubert['losses']}, launches {hubert['launches']}")
+    log(f"summary: family f32 checks {json.dumps(fam_f32, default=str)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -15,9 +15,12 @@ so in bf16 they round differently from the model's own attention (by about
 one bf16 ulp of p and of the output); in f32 they agree to summation order.
 Training keeps the model's own attention: the kernel has no backward.
 
-Sliding-window attention (the JAX module's window mask and ring cache,
-used by mixtral and jamba) is not ported at the model level; the flash
-kernel itself takes a window.
+Sliding windows (mixtral): train and prefill mask ``kpos > qpos - window``
+(the flash kernel takes the window too); prefill returns a RING cache of
+exactly ``window`` rows whatever ``cache_len`` is, position p in slot
+``p % window``, holding the last ``min(S, window)`` positions; decode
+writes slot ``pos % window`` and reads every slot once the ring has
+wrapped.
 """
 
 from __future__ import annotations
@@ -75,15 +78,17 @@ def attention_forward(
     rotary_dim: int,
     rope_theta: float,
     causal: bool = True,
+    window: int | None = None,
     return_cache: bool = False,
     cache_len: int | None = None,
     flash: bool = False,
     impl: str | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """Train / prefill attention.  x: (B, S, d); positions: (S,) or (B, S).
-    Returns ``(out (B, S, d), cache)``; the cache is ``{"k", "v"}``
-    (B, cache_len, K, hd), the keys and values padded with zeros to
-    ``cache_len`` (default S), when ``return_cache``, else None.
+    Returns ``(out (B, S, d), cache)``; the cache is ``{"k", "v"}`` when
+    ``return_cache``, else None: (B, cache_len, K, hd), the keys and values
+    padded with zeros to ``cache_len`` (default S), or with a ``window``
+    the (B, window, K, hd) ring.
 
     ``flash`` runs ``ops.flash_attention`` with ``impl`` in place of the
     model's own attention (the training path)."""
@@ -95,24 +100,51 @@ def attention_forward(
     k = apply_rope(k, pos, rotary_dim=rotary_dim, theta=rope_theta)
     if flash:
         o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=causal, impl=impl)
+                                causal=causal, window=window, impl=impl)
         out = o.reshape(B, S, n_heads * head_dim)
     else:
         qh = q.reshape(B, S, n_kv, G, head_dim) * (head_dim**-0.5)
         s = _gqa_scores(qh, k)  # (B, K, G, S, S)
+        kpos = pos[0]  # positions are identical across the batch
+        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
         if causal:
-            kpos = pos[0]  # positions are identical across the batch
-            mask = kpos[None, :] <= kpos[:, None]
+            mask &= kpos[None, :] <= kpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > kpos[:, None] - window
+        if causal or window is not None:
             s = torch.where(mask, s, _neg_inf(s))
         out = _gqa_out(torch.softmax(s, dim=-1), v)
     out = out @ params["wo"]
     cache = None
     if return_cache:
-        pad = (cache_len or S) - S
-        if pad < 0:
-            raise ValueError(f"prompt length {S} exceeds cache_len {cache_len}")
-        cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+        cache = _ring(k, v, pos[0], window) if window is not None else _padded(k, v, cache_len)
     return out, cache
+
+
+def _padded(k: torch.Tensor, v: torch.Tensor, cache_len: int | None) -> dict[str, torch.Tensor]:
+    S = k.shape[1]
+    pad = (cache_len or S) - S
+    if pad < 0:
+        raise ValueError(
+            f"prompt length {S} exceeds cache_len {cache_len} (a vision prompt's length "
+            "counts its patch positions)")
+    return {"k": F.pad(k, (0, 0, 0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+
+
+def _ring(k: torch.Tensor, v: torch.Tensor, kpos: torch.Tensor, W: int) -> dict[str, torch.Tensor]:
+    """The last ``min(S, W)`` positions in a ring of W rows, position p in
+    slot ``p % W``; for S < W the slots past the prompt hold copies of its
+    last key and value (decode reads no slot past its position until it
+    has written it)."""
+    S = k.shape[1]
+    take = min(S, W)
+    idx = torch.arange(W, device=k.device)
+    src = (idx + max(S - W, 0)).clamp(max=S - 1)
+    slots = (kpos[-1].long() + 1 - take + idx) % W
+    kc, vc = k.new_zeros((k.shape[0], W, *k.shape[2:])), v.new_zeros((v.shape[0], W, *v.shape[2:]))
+    kc[:, slots] = k[:, src]
+    vc[:, slots] = v[:, src]
+    return {"k": kc, "v": vc}
 
 
 def attention_decode(
@@ -126,10 +158,13 @@ def attention_decode(
     head_dim: int,
     rotary_dim: int,
     rope_theta: float,
+    window: int | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One-token decode.  x: (B, 1, d); pos: a 0-d int tensor (every row at
     one position) or (B,) (slot-indexed serving: each row at its own).
-    cache["k"/"v"]: (B, S_cache, K, hd).
+    cache["k"/"v"]: (B, S_cache, K, hd), the ring of ``window`` rows for a
+    sliding window (slot ``pos % S_cache``; every slot valid once a row's
+    position has passed the ring).
 
     The new key and value are written into the cache IN PLACE, and the
     cache is returned, as the JAX function returns its updated copy.  A
@@ -145,10 +180,10 @@ def attention_decode(
 
     kc, vc = cache["k"], cache["v"]
     S_c = kc.shape[1]
-    slot = pos.clamp(max=S_c - 1).long()
+    slot = (pos % S_c if window is not None else pos.clamp(max=S_c - 1)).long()
     if pos.dim():
         rows = torch.arange(B, device=x.device)
-        keep = (pos < S_c)[:, None, None]
+        keep = ((pos < S_c) | (window is not None))[:, None, None]
         kc.index_put_((rows, slot), torch.where(keep, k[:, 0], kc[rows, slot]))
         vc.index_put_((rows, slot), torch.where(keep, v[:, 0], vc[rows, slot]))
     else:
@@ -159,7 +194,10 @@ def attention_decode(
     s = _gqa_scores(qh, kc)  # (B, K, G, 1, S_c)
     idx = torch.arange(S_c, device=x.device)
     pcol = pos[:, None] if pos.dim() else pos
-    valid = (idx <= pcol).expand(B, S_c)
+    valid = idx <= pcol
+    if window is not None:
+        valid = valid | (pcol >= S_c)
+    valid = valid.expand(B, S_c)
     s = torch.where(valid[:, None, None, None, :], s, _neg_inf(s))
     out = _gqa_out(torch.softmax(s, dim=-1), vc) @ params["wo"]
     return out, {"k": kc, "v": vc}

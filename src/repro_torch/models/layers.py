@@ -22,12 +22,23 @@ def dense_init(
     gen: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype,
     device: torch.device, scale: float | None = None,
 ) -> torch.Tensor:
-    """Truncated-normal (±2σ) fan-in init, drawn in f32."""
+    """Truncated-normal (±2σ) fan-in init, drawn in f32 and cast.  A leaf
+    of three or more dims (a stack of layers) is drawn one slab of its
+    first dim at a time, so the f32 temporary is one slab, not the leaf."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale if scale is not None else (1.0 / max(fan_in, 1)) ** 0.5
-    x = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * std).to(dtype)
+
+    def draw(slab_shape):
+        x = torch.empty(slab_shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return x.mul_(std).to(dtype)
+
+    if len(shape) < 3:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for slab in out:
+        slab.copy_(draw(slab.shape))
+    return out
 
 
 def embed_init(
@@ -84,12 +95,23 @@ def apply_rope(
 # ---------------------------------------------------------------------------
 
 
-def mlp(params: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """SiLU-gated MLP (the activation of every dense config)."""
-    g = F.silu(x @ params["w_gate"])
+def activation(act: str):
+    """The MLP activation by config name: ``"silu"``, or ``"gelu"`` as
+    ``jax.nn.gelu``'s default, the tanh approximation."""
+    if act == "silu":
+        return F.silu
+    if act == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {act!r}; the configs use 'silu' or 'gelu'")
+
+
+def mlp(params: dict[str, torch.Tensor], x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated MLP: ``act(x W_gate) * (x W_up)`` then ``W_down``."""
+    g = activation(act)(x @ params["w_gate"])
     return (g * (x @ params["w_up"])) @ params["w_down"]
 
 
 __all__ = [
-    "apply_rope", "dense_init", "embed_init", "mlp", "rms_norm", "rope_frequencies",
+    "activation", "apply_rope", "dense_init", "embed_init", "mlp", "rms_norm",
+    "rope_frequencies",
 ]

@@ -1,5 +1,5 @@
-"""The LM of the port (``src/repro/models/lm.py``): the dense and SSM
-families.
+"""The LM of the port (``src/repro/models/lm.py``): every family of the
+JAX package's configs (dense, moe, ssm, hybrid, vlm, audio).
 
 Parameters are a flat ``dict[str, Tensor]`` whose keys are the JAX pytree
 paths joined by dots (``"blocks.0.attn.wq"``) and whose insertion order is
@@ -11,12 +11,18 @@ reproduces ``jax.flatten_util.ravel_pytree``.  As in JAX, a per-layer
 ``blocks.j`` holds the j-th layer of the period with its leaves stacked
 ``(n_rep, ...)``, one row per repeat.
 
-Ported: dense (attention + SiLU MLP) and ssm (mamba2 mixer, no MLP).  The
-MoE, hybrid, VLM and audio families raise ``NotImplementedError`` (ROADMAP
-Queue 1).  Activation checkpointing (``remat="full"``) is not applied (ROADMAP
+A layer's mixer is attention (a sliding window where the config has one)
+or a mamba2 block, and its MLP dense (SiLU or GELU), MoE (``models/moe.py``,
+the form that ``cfg.moe_dispatch`` names) or none; jamba's period of 8 mixes
+all four.  The MoE load-balance loss is each layer's mean over batch rows,
+summed over layers, and ``seq_losses`` adds ``aux_coef`` times it to every
+sequence.  Frontends are the JAX package's stubs: audio takes ``frames``
+(B, S, d) and has no ``embed`` leaf; vision prepends ``patches`` (B,
+n_patches, d) to the token embeddings, and its labels cover the text span.
+Activation checkpointing (``remat="full"``) is not applied (ROADMAP
 Queue 1): at the launcher's sequence lengths the activations fit.
 
-Serving: :meth:`LM.prefill` (the flash-attention kernel or the SSD kernel
+Serving: :meth:`LM.prefill` (the flash-attention kernel and the SSD kernel
 forward-only on the card), :meth:`LM.decode_step` and the slot cache
 (:meth:`LM.empty_slot_cache`, :meth:`LM.cache_insert_slot`,
 :meth:`LM.cache_evict_slot`).  A cache is a flat dict like the parameters:
@@ -38,13 +44,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention_decode, attention_forward
 from repro_torch.models.layers import dense_init, embed_init, mlp, rms_norm
+from repro_torch.models.moe import init_moe, moe_apply, moe_apply_dense
 from repro_torch.models.ssm import init_mamba, mamba_decode, mamba_forward
 
 Params = dict[str, torch.Tensor]
 Cache = dict[str, torch.Tensor]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_PORTED_FAMILIES = ("dense", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +148,7 @@ def params_to_numpy(params: Params):
 
 
 class LM:
-    """Decoder-only LM over explicit parameter dicts (dense and ssm).
+    """The LM over explicit parameter dicts, every family.
 
     ``ssd_impl`` picks the SSD scan of the mamba layers (``kernels.ops``):
     None for the kernel on a CUDA tensor and the plain version on a CPU
@@ -154,19 +160,10 @@ class LM:
 
     def __init__(self, cfg: ModelConfig, ssd_impl: str | None = None,
                  attn_impl: str | None = None):
-        if cfg.family not in _PORTED_FAMILIES or cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP Queue 1: the other model families)"
-            )
         self.cfg = cfg
         self.plan = layer_plan(cfg)
         self.period = plan_period(self.plan)
         self.n_rep = cfg.n_layers // self.period
-        if any(s.mixer == "attn" for s in self.plan) and cfg.window is not None:
-            raise NotImplementedError(f"{cfg.name}: sliding-window attention is not ported")
-        if any(s.mlp == "dense" for s in self.plan) and cfg.act != "silu":
-            raise NotImplementedError(f"{cfg.name}: only SiLU MLPs are ported")
         self.dtype = _DTYPES[cfg.dtype]
         self.ssd_impl = ssd_impl
         self.attn_impl = attn_impl
@@ -198,8 +195,11 @@ class LM:
                 d_state=cfg.ssm_state, n_groups=cfg.ssm_groups,
                 conv_kernel=cfg.conv_kernel, dtype=dt, device=dev,
             )
-        if spec.mlp == "dense":
+        if spec.mlp != "none":
             block["mlp_norm"] = {"scale": torch.ones((n, d), dtype=dt, device=dev)}
+        if spec.mlp == "moe":
+            block["moe"] = init_moe(gen, n, d, cfg.n_experts, cfg.expert_d_ff, dt, dev)
+        elif spec.mlp == "dense":
             block["mlp"] = {
                 "w_gate": stacked((d, cfg.d_ff)),
                 "w_up": stacked((d, cfg.d_ff)),
@@ -213,11 +213,12 @@ class LM:
         cfg, dt, dev = self.cfg, self.dtype, torch.device(device)
         blocks = tuple(self._init_block(gen, self.plan[j], dev) for j in range(self.period))
         tree = {
-            "embed": embed_init(gen, (cfg.vocab, cfg.d_model), dt, dev),
             "blocks": blocks,
             "final_norm": {"scale": torch.ones((cfg.d_model,), dtype=dt, device=dev)},
         }
-        if not cfg.tie_embeddings:
+        if cfg.frontend != "audio":
+            tree["embed"] = embed_init(gen, (cfg.vocab, cfg.d_model), dt, dev)
+        if not cfg.tie_embeddings or cfg.frontend == "audio":
             tree["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab), dt, dev)
         return flatten_tree(tree)
 
@@ -231,11 +232,12 @@ class LM:
         self, spec: LayerSpec, bp: dict[str, torch.Tensor], x: torch.Tensor,
         positions: torch.Tensor, mode: str = "train", cache: dict | None = None,
         pos: torch.Tensor | None = None, cache_len: int | None = None,
-    ) -> tuple[torch.Tensor, dict | None]:
+    ) -> tuple[torch.Tensor, torch.Tensor | None, dict | None]:
         """One layer in ``mode`` "train", "prefill" (also returns the
         layer's decode cache, padded to ``cache_len``) or "decode" (one
-        token at ``pos`` against ``cache``).  Returns (x, the layer's cache
-        or None)."""
+        token at ``pos`` against ``cache``).  Returns (x, the MoE layer's
+        load-balance loss averaged over batch rows or None, the layer's
+        cache or None)."""
         cfg = self.cfg
 
         def sub(prefix):
@@ -244,7 +246,7 @@ class LM:
         h = rms_norm(x, bp["mixer_norm.scale"], cfg.norm_eps)
         if spec.mixer == "attn":
             kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-                      rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta)
+                      rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta, window=cfg.window)
             if mode == "decode":
                 out, new_cache = attention_decode(sub("attn."), h, cache, pos, **kw)
             else:
@@ -264,10 +266,18 @@ class LM:
                     return_cache=(mode == "prefill"), **kw,
                 )
         x = x + out
-        if spec.mlp == "dense":
+        aux = None
+        if spec.mlp != "none":
             h = rms_norm(x, bp["mlp_norm.scale"], cfg.norm_eps)
-            x = x + mlp(sub("mlp."), h)
-        return x, new_cache
+            if spec.mlp == "moe":
+                moe_fn = moe_apply_dense if cfg.moe_dispatch == "dense" else moe_apply
+                y, a = moe_fn(sub("moe."), h, top_k=cfg.top_k,
+                              capacity_factor=cfg.capacity_factor, act=cfg.act)
+                aux = a.mean()
+            else:
+                y = mlp(sub("mlp."), h, cfg.act)
+            x = x + y
+        return x, aux, new_cache
 
     def _layers(self, params: Params) -> list[dict[str, torch.Tensor]]:
         """Per layer of the period, its stacked leaves under their names
@@ -278,42 +288,64 @@ class LM:
             out.append({n[len(prefix):]: v for n, v in params.items() if n.startswith(prefix)})
         return out
 
+    def _embed(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, S, d): audio frames in the model dtype; token embeddings,
+        with a vision prompt's patch embeddings ahead of them."""
+        cfg = self.cfg
+        if cfg.frontend == "audio":
+            return batch["frames"].to(self.dtype)
+        tok = F.embedding(batch["tokens"].long(), params["embed"])
+        if cfg.frontend == "vision":
+            return torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
+        return tok
+
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = params["lm_head"] if "lm_head" in params else params["embed"].t()
         return x @ head
 
-    def forward(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Logits (B, S, V) in the parameter dtype."""
+    def forward(
+        self, params: Params, batch: dict[str, torch.Tensor]
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(logits (B, S_total, V) in the parameter dtype, the MoE
+        load-balance loss summed over layers, f32 0-d)."""
         cfg = self.cfg
-        x = F.embedding(batch["tokens"].long(), params["embed"])
+        x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # one unbind per stacked leaf: its backward stacks the per-layer
         # grads once, instead of a full-size scatter per layer
         blocks = [{k: v.unbind(0) for k, v in layer.items()} for layer in self._layers(params)]
         for r in range(self.n_rep):
             for j, layers in enumerate(blocks):
-                x, _ = self._apply_block(
+                x, a, _ = self._apply_block(
                     self.plan[j], {k: v[r] for k, v in layers.items()}, x, positions
                 )
+                if a is not None:
+                    aux = aux + a
         x = rms_norm(x, params["final_norm.scale"], cfg.norm_eps)
-        return self._logits(params, x)
+        return self._logits(params, x), aux
 
     def seq_losses(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        """Per-sequence mean next-token CE, shape (B,)."""
-        logits = self.forward(params, batch)
+        """Per-sequence mean CE plus ``aux_coef`` x the MoE loss, shape (B,):
+        next-token CE over the text span (a vision prompt's patch positions
+        carry no labels); an encoder-only model's frame-level CE unshifted."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch)
         labels = batch["labels"]
-        if not self.cfg.encoder_only:
+        if cfg.frontend == "vision":
+            logits = logits[:, cfg.n_patches:]
+        if not cfg.encoder_only:
             logits, labels = logits[:, :-1], labels[:, 1:]
         valid = labels >= 0
         lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = logp.gather(-1, lab[..., None])[..., 0]
-        return -(ll * valid).sum(-1) / valid.sum(-1).clamp(min=1)
+        ce = -(ll * valid).sum(-1) / valid.sum(-1).clamp(min=1)
+        return ce + cfg.aux_coef * aux
 
     def weighted_loss(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Σ_b weight_b · seq_loss_b — the coded-DP training objective."""
         return (self.seq_losses(params, batch) * batch["weight"]).sum()
-
 
     # -- serving: prefill, decode and the slot cache ---------------------------
 
@@ -324,16 +356,18 @@ class LM:
         """Returns (last-position logits (B, V), cache).  The cache holds
         each layer's leaves stacked ``(n_rep, B, ...)`` under the JAX cache
         tree's dotted keys (``"layers.j.k"``, ``"layers.j.h"``) and
-        ``"pos"``, the prompt length as a 0-d int32 tensor."""
+        ``"pos"``, the prompt length (a vision prompt's patches included)
+        as a 0-d int32 tensor.  A sliding-window layer's cache is its ring
+        of ``window`` rows whatever ``cache_len`` is."""
         cfg = self.cfg
-        x = F.embedding(batch["tokens"].long(), params["embed"])
+        x = self._embed(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         per_layer: list[list[dict]] = [[] for _ in range(self.period)]
         layers = self._layers(params)
         for r in range(self.n_rep):
             for j, layer in enumerate(layers):
-                x, c = self._apply_block(
+                x, _, c = self._apply_block(
                     self.plan[j], {k: v[r] for k, v in layer.items()}, x, positions,
                     mode="prefill", cache_len=cache_len,
                 )
@@ -365,7 +399,7 @@ class LM:
             for j, layer in enumerate(layers):
                 prefix = f"layers.{j}."
                 stacked = {n[len(prefix):]: v for n, v in cache.items() if n.startswith(prefix)}
-                x, new = self._apply_block(
+                x, _, new = self._apply_block(
                     self.plan[j], {k: v[r] for k, v in layer.items()}, x, None,
                     mode="decode", cache={n: v[r] for n, v in stacked.items()}, pos=pos,
                 )
@@ -381,11 +415,16 @@ class LM:
     def empty_slot_cache(self, params: Params, n_slots: int, cache_len: int) -> Cache:
         """Zeroed decode cache for ``n_slots`` independent requests with a
         per-slot ``pos`` vector, on the parameters' device.  The shapes are
-        built here (the KV cache of an attention layer, the SSM state and
+        built here (the KV cache of an attention layer, a ring of ``window``
+        rows with a sliding window, the SSM state and
         the conv inputs of a mamba layer), not traced from a prefill."""
         cfg, n = self.cfg, self.n_rep
         if cfg.encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only; no decode cache")
+        if cfg.frontend == "vision" and cache_len < cfg.n_patches + 1:
+            # the JAX package traces a prefill of n_patches + 1 positions
+            raise ValueError(f"cache_len {cache_len} cannot hold a vision prompt's "
+                             f"{cfg.n_patches} patch positions and a token")
         dev = params["embed"].device
 
         def zeros(*shape, dtype=self.dtype):
@@ -394,8 +433,9 @@ class LM:
         cache: Cache = {}
         for j, spec in enumerate(self.plan[: self.period]):
             if spec.mixer == "attn":
+                rows = cfg.window if cfg.window is not None else cache_len
                 for name in ("k", "v"):
-                    cache[f"layers.{j}.{name}"] = zeros(cache_len, cfg.n_kv_heads,
+                    cache[f"layers.{j}.{name}"] = zeros(rows, cfg.n_kv_heads,
                                                         cfg.resolved_head_dim)
             else:
                 conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state

@@ -15,7 +15,8 @@ PyTorch has no ``lax.scan``, so the decode loop is the JAX package's
 Python-level loop (``_python_generate``): tokens stay on the device and
 reach the host once, at the end.  The model's ``prefill`` and
 ``decode_step`` run under ``torch.inference_mode()``; on the card the
-prefill runs the flash-attention kernel (dense) or the SSD kernel (ssm).
+prefill runs the flash-attention kernel in its attention layers and the SSD
+kernel in its mamba layers.
 """
 
 from __future__ import annotations
@@ -118,13 +119,19 @@ class LMServer:
         max_new_per_request: np.ndarray | None = None,
         pad_id: int | None = None,
     ) -> np.ndarray:
-        """Greedy decode.  batch: ``{"tokens": (B, S)}`` (a tensor or an
-        array; it is moved to the parameters' device).  Returns
-        (B, max_new_tokens) int32; rows finished early (EOS or per-request
-        budget) are right-padded with ``pad_id``."""
+        """Greedy decode.  batch: the model's inputs, ``{"tokens": (B, S)}``
+        and a vision model's ``"patches"`` (tensors or arrays; they are
+        moved to the parameters' device).  Returns (B, max_new_tokens)
+        int32; rows finished early (EOS or per-request budget) are
+        right-padded with ``pad_id``.
+
+        As in the JAX server, ``S`` and the default ``cache_len`` count the
+        tokens alone; a vision prompt's patches also take cache rows, so
+        its caller passes a ``cache_len`` that holds them (the prefill
+        raises otherwise)."""
         dev = params["embed"].device
-        tokens = torch.as_tensor(batch["tokens"], device=dev)
-        B, S = tokens.shape
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        B, S = inputs["tokens"].shape
         cache_len, steps = self.resolve_lengths(S, max_new_tokens, cache_len)
         pad = int(pad_id if pad_id is not None else (eos_id if eos_id is not None else 0))
         eos = int(eos_id) if eos_id is not None else _NO_EOS
@@ -135,7 +142,7 @@ class LMServer:
             if tuple(limits.shape) != (B,):
                 raise ValueError(f"max_new_per_request shape {tuple(limits.shape)} != ({B},)")
 
-        logits, cache = self._prefill(params, {"tokens": tokens}, cache_len=cache_len)
+        logits, cache = self._prefill(params, inputs, cache_len=cache_len)
         toks = self._python_generate(params, logits, cache, limits, eos, pad, steps)
         out = toks.cpu().numpy()
         if steps < max_new_tokens:  # cache-overrun truncation: pad the tail

@@ -619,3 +619,86 @@ def test_cuda_serving_engine_launches_the_prefill_kernel(cuda_device, arch):
     assert counter.launches - before == cfg.n_layers * len(reqs)
     assert [len(c.tokens) for c in comps] == [5] * len(reqs)
     assert all(((c.tokens >= 0) & (c.tokens < cfg.vocab)).all() for c in comps)
+
+
+# -- the model families ---------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,hd,window", [(4, 1024, 16, 16, 128, None),
+                                               (1, 6144, 32, 8, 128, 4096),
+                                               (4, 1024, 16, 8, 128, None)],
+                         ids=["moonshot", "mixtral-window", "internvl2"])
+def test_cuda_flash_attention_family_prefill_shapes(cuda_device, B, S, H, K, hd, window):
+    """The families' prefill shapes in bf16, causal: hd 128 with G = 1
+    (moonshot) and G = 2 (internvl2), and mixtral's window of 4096 over a
+    6144-token prompt, within one bf16 spacing of the plain version."""
+    _flash_vs_plain(*_qkv(B, S, H, K, hd, torch.bfloat16, cuda_device, S + H), True, window,
+                    _FLASH_TOL_TIGHT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mixtral-8x7b", "jamba-1.5-large-398b",
+                                  "internvl2-2b"])
+def test_cuda_family_prefill_through_the_kernels_matches_plain(cuda_device, arch):
+    """The reduced MoE, sliding-window (a 40-token prompt past mixtral's
+    reduced window of 16), hybrid and VLM prefills in f32 with TF32 off:
+    through the kernels (flash once per attention layer, the SSD scan once
+    per mamba layer) against ``attn_impl`` / ``ssd_impl="torch"``:
+    last-position logits within 1e-4 of max|logit|, every cache leaf within
+    1e-4 (the SSD state 1e-3) of its max."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.lm import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    kernel = build_model(cfg)
+    plain = build_model(cfg, attn_impl="torch", ssd_impl="torch")
+    params = kernel.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    r = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(r.integers(0, cfg.vocab, (2, 40)), device=cuda_device)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.as_tensor(r.normal(size=(2, cfg.n_patches, cfg.d_model)) * 0.02,
+                                           dtype=torch.float32, device=cuda_device)
+    L = 48 + cfg.n_patches
+    before = (flash_attention.launches, ssd_scan.launches)
+    lk, ck = kernel.prefill(params, batch, cache_len=L)
+    torch.cuda.synchronize()
+    attn = sum(s.mixer == "attn" for s in kernel.plan)
+    assert (flash_attention.launches - before[0], ssd_scan.launches - before[1]) == (
+        attn, cfg.n_layers - attn)
+    lt, ct = plain.prefill(params, batch, cache_len=L)
+    assert (flash_attention.launches - before[0], ssd_scan.launches - before[1]) == (
+        attn, cfg.n_layers - attn)
+    assert float((lk - lt).abs().max() / lt.abs().max()) <= 1e-4
+    for name in ct:
+        if name == "pos":
+            assert torch.equal(ck[name], ct[name])
+            continue
+        lim = 1e-3 if name.endswith(".h") else 1e-4
+        assert float((ck[name] - ct[name]).abs().max()) <= lim * float(ct[name].abs().max()), name
+
+
+@pytest.mark.gpu
+def test_cuda_stacked_init_draws_one_slab_at_a_time(cuda_device):
+    """A stacked expert leaf of 1.5 G bf16 values (12 layers of moonshot's
+    (64, 2048, 1408)) initializes with a peak of about one f32 slab above
+    the leaf (0.74 GB), not the 6 GB f32 temporary of a whole-leaf draw,
+    with the truncated normal's spread at n_experts^-1/2."""
+    from repro_torch.models.moe import init_moe
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    p = init_moe(torch.Generator(device=cuda_device).manual_seed(0), 12, 2048, 64, 1408,
+                 torch.bfloat16, cuda_device)
+    torch.cuda.synchronize()
+    leaves = sum(t.numel() * t.element_size() for t in p.values())
+    extra = torch.cuda.max_memory_allocated(cuda_device) - base - leaves
+    slab = 64 * 2048 * 1408 * 4
+    assert extra <= 2 * slab, (extra, slab)
+    std = float(p["w_gate"][3].float().std())
+    assert abs(std - 0.8796 * 64**-0.5) <= 0.01 * 64**-0.5
+    assert p["router"].dtype == torch.float32

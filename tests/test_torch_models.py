@@ -1,12 +1,15 @@
-"""The port's LM (dense and ssm families) and AdamW against the JAX package
-at equal weights.
+"""The port's LM (every family) and AdamW against the JAX package at equal
+weights.
 
 ``jax.random`` init cannot be replayed in torch, so the JAX parameters are
 converted into the port (``params_from_numpy``) and both sides run the
-same numpy batch, on the reduced f32 configs.  mamba2-370m is also built
-in bf16, the first model of mixed dtype (``A_log``, ``D`` and ``dt_bias``
-stay f32), to hold the converter, the ravel order and ``FlatView`` to
-JAX's ``ravel_pytree`` there.
+same numpy batch, on the reduced f32 configs of all ten architectures
+(audio frames and vision patches included).  mamba2-370m and
+moonshot-v1-16b-a3b are also built in bf16, models of mixed dtype (mamba's
+``A_log``, ``D`` and ``dt_bias``, and the MoE router, stay f32), to hold
+the converter, the ravel order and ``FlatView`` to JAX's ``ravel_pytree``
+there.  The port's own init has the JAX init's layout and, leaf by leaf,
+its spread.
 """
 import dataclasses
 
@@ -28,15 +31,30 @@ from repro_torch.optim.adam import adamw_init, adamw_update
 
 torch.set_num_threads(2)
 
-# chatglm3-6b: half-rotary heads (rotary_fraction 0.5) and QKV bias; qwen2.5-14b: QKV bias
-ARCHS = ["smollm-360m", "llama3.2-1b", "mamba2-370m", "chatglm3-6b", "qwen2.5-14b"]
+# chatglm3-6b: half-rotary heads (rotary_fraction 0.5) and QKV bias; qwen2.5-14b: QKV
+# bias; moonshot: MoE every layer; mixtral: MoE and a sliding window (16 reduced); jamba:
+# a period of 8 mixing mamba, attention, dense and MoE; internvl2: vision patches;
+# hubert: audio frames, bidirectional, encoder-only, GELU
+ARCHS = ["smollm-360m", "llama3.2-1b", "mamba2-370m", "chatglm3-6b", "qwen2.5-14b",
+         "moonshot-v1-16b-a3b", "mixtral-8x7b", "jamba-1.5-large-398b", "internvl2-2b",
+         "hubert-xlarge"]
 
 
 def _batch(cfg, B=3, S=16, seed=0):
+    """A numpy batch for ``cfg``'s frontend: tokens, or audio frames, with
+    a vision model's patches (a normal times 0.02, as the JAX tests)."""
     r = np.random.default_rng(seed)
-    tok = r.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    return {"tokens": tok, "labels": tok.copy(),
-            "weight": r.uniform(0.1, 1.0, (B,)).astype(np.float32)}
+    if cfg.frontend == "audio":
+        b = {"frames": r.normal(size=(B, S, cfg.d_model)).astype(np.float32),
+             "labels": r.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    else:
+        tok = r.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        b = {"tokens": tok, "labels": tok.copy()}
+        if cfg.frontend == "vision":
+            b["patches"] = (r.normal(size=(B, cfg.n_patches, cfg.d_model)) * 0.02).astype(
+                np.float32)
+    b["weight"] = r.uniform(0.1, 1.0, (B,)).astype(np.float32)
+    return b
 
 
 def _reduced(get, arch, dtype):
@@ -76,19 +94,27 @@ def test_converter_round_trip_and_ravel_order():
     assert list(flatten_tree(back)) == list(tp)
 
 
-def test_converter_round_trip_and_ravel_order_mixed_dtypes():
-    """bf16 mamba2: the converter carries each leaf's dtype key for key, and
-    raveling in key order (each leaf cast to f32) is ``ravel_pytree``'s
-    flat vector."""
+MIXED = {"mamba2-370m": {f"blocks.0.mamba.{k}" for k in ("A_log", "D", "dt_bias")},
+         "moonshot-v1-16b-a3b": {"blocks.0.moe.router"}}
+
+
+@pytest.mark.parametrize("arch", list(MIXED))
+def test_converter_round_trip_and_ravel_order_mixed_dtypes(arch):
+    """bf16 mamba2 and moonshot: the converter carries each leaf's dtype
+    key for key, and raveling in key order (each leaf cast to f32) is
+    ``ravel_pytree``'s flat vector."""
     from jax.flatten_util import ravel_pytree
 
     from repro_torch.core.aggregator import FlatView
 
-    _, jp, _, tp = _setup("mamba2-370m", dtype="bfloat16")
+    _, jp, _, tp = _setup(arch, dtype="bfloat16")
     jflat = flatten_tree(jax.tree.map(np.asarray, jp))
     assert list(tp) == list(jflat)
     f32_leaves = {k for k, v in tp.items() if v.dtype == torch.float32}
-    assert f32_leaves == {f"blocks.0.mamba.{k}" for k in ("A_log", "D", "dt_bias")}
+    assert f32_leaves == MIXED[arch]
+    own = build_model(_reduced(get_config, arch, "bfloat16")).init(
+        torch.Generator().manual_seed(0), "cpu")
+    assert {k for k, v in own.items() if v.dtype == torch.float32} == MIXED[arch]
     for k, v in tp.items():
         assert str(v.dtype).split(".")[-1] == str(jflat[k].dtype), k
     back = params_to_numpy(tp)
@@ -148,6 +174,47 @@ def test_port_init_has_the_jax_layout():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_port_init_has_the_jax_spread(arch):
+    """Leaf by leaf, the port's init has the JAX init's mean and standard
+    deviation: the constant leaves exactly, the random ones of 512 values
+    or more within 10 % of the JAX std (the sampling error of a leaf of n
+    values is about (2n)^-1/2; mamba's dt_bias, 16 values at the reduced
+    size, is held by its own test in test_torch_ssm.py).  The MoE experts
+    are drawn at n_experts^-1/2 (the fan-in JAX's init reads off their
+    leading dim), the router at 0.02."""
+    _, _, tm, tp = _setup(arch)
+    own = tm.init(torch.Generator().manual_seed(0), "cpu")
+    for k, want in tp.items():
+        got = own[k]
+        w_std, g_std = float(want.std()), float(got.std())
+        if w_std == 0.0:
+            assert torch.equal(got, want), k
+            continue
+        if want.numel() < 512:
+            continue
+        assert abs(g_std - w_std) <= 0.1 * w_std, (k, g_std, w_std)
+        assert abs(float(got.mean()) - float(want.mean())) <= 0.1 * w_std, k
+    if tm.cfg.n_experts:
+        E = tm.cfg.n_experts
+        moe = [k for k in own if ".moe.w_" in k]
+        assert moe
+        for k in moe:  # truncated at +-2 sigma: std 0.8796 sigma
+            assert abs(float(own[k].std()) - 0.8796 * E**-0.5) <= 0.05 * E**-0.5, k
+        router = [k for k in own if k.endswith(".moe.router")]
+        assert router and all(abs(float(own[k].std()) - 0.8796 * 0.02) <= 0.002 for k in router)
+
+
+# The reduced jamba is the one reduced config deeper than 4 layers (16: two
+# periods of 8).  f32 rounding grows with depth: through 16 layers the two
+# packages' gradients part by up to 2.6e-5 of a leaf's largest entry, 1.1e-5
+# absolute on the embedding's (whose entries reach 2.2), which is less than
+# the reference parts from itself when every parameter moves by one f32 ulp
+# (test_deep_hybrid_grad_gap_is_within_the_reference_one_ulp_spread).  So its
+# entries are held at atol 2e-5 and every leaf within 1e-4 of its largest entry.
+GRAD_ATOL = {"jamba-1.5-large-398b": 2e-5}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_weighted_loss_and_grads_match(arch):
     jm, jp, tm, tp = _setup(arch)
     b = _batch(tm.cfg)
@@ -158,7 +225,42 @@ def test_weighted_loss_and_grads_match(arch):
     np.testing.assert_allclose(tl.item(), float(jl), rtol=1e-5)
     jflat = flatten_tree(jax.tree.map(np.asarray, jg))
     for k, p in leaves.items():
-        _close(p.grad, jflat[k], rtol=1e-4, atol=1e-6)
+        _close(p.grad, jflat[k], rtol=1e-4, atol=GRAD_ATOL.get(arch, 1e-6))
+        scale = float(np.abs(jflat[k]).max())
+        assert float((p.grad - torch.from_numpy(jflat[k])).abs().max()) <= 1e-4 * scale, k
+
+
+def _port_grads(tm, tp, b):
+    leaves = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+    tm.weighted_loss(leaves, {k: torch.from_numpy(v) for k, v in b.items()}).backward()
+    return {k: v.grad.numpy() for k, v in leaves.items()}
+
+
+def _gap(a, b):
+    """(max |a - b| over every leaf, max over leaves of |a - b| / max|b|)."""
+    diff = {k: float(np.abs(a[k] - b[k]).max()) for k in b}
+    return max(diff.values()), max(d / max(float(np.abs(b[k]).max()), 1e-30)
+                                   for k, d in diff.items())
+
+
+def test_deep_hybrid_grad_gap_is_within_the_reference_one_ulp_spread():
+    """Why the reduced jamba's gradients are held at GRAD_ATOL: the port
+    parts from the reference by less, absolute and per leaf relative to
+    its largest entry, than the reference parts from itself when every f32
+    parameter moves up by one ulp (the gap is f32 rounding carried through
+    16 layers, not a fault of the port)."""
+    arch = "jamba-1.5-large-398b"
+    jm, jp, tm, tp = _setup(arch)
+    vg = _jax_side(arch, 0)[2]
+    b = _batch(tm.cfg)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    ref = flatten_tree(jax.tree.map(np.asarray, vg(jp, jb)[1]))
+    up = jax.tree.map(lambda x: jnp.nextafter(x, jnp.inf) if x.dtype == jnp.float32 else x, jp)
+    ref_up = flatten_tree(jax.tree.map(np.asarray, vg(up, jb)[1]))
+    port_abs, port_rel = _gap(_port_grads(tm, tp, b), ref)
+    ulp_abs, ulp_rel = _gap(ref_up, ref)
+    assert port_abs > 1e-6  # the case GRAD_ATOL is for
+    assert port_abs <= ulp_abs and port_rel <= ulp_rel, (port_abs, ulp_abs, port_rel, ulp_rel)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -204,7 +306,3 @@ def test_one_adamw_step_matches(bf16):
         for k in tnew:
             _close(topt.master[k], jmaster[k], rtol=1e-5, atol=1e-7)
 
-
-def test_non_dense_family_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("mixtral-8x7b").reduced())

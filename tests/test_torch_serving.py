@@ -8,6 +8,16 @@ bit-equal to the port's own sequential decode; completions and every
 ``RequestRecord`` field equal to the JAX engine's under a pinned
 ``decode_dt`` and a seeded ``ReplicaPool``), and the numpy-only
 ``ReplicaPool`` and ``ServingMetrics`` bit-equal to JAX's.
+
+The families: moonshot (MoE), mixtral (MoE and a sliding window: prompts
+and decodes past its reduced window of 16, the ring wrapping) and jamba
+(mamba, attention, dense and MoE layers in one period) through prefill,
+decode, the slot cache, ``generate`` and continuous batching; internvl2
+(patches ahead of the tokens) through prefill, decode and ``generate``
+with an explicit cache, and the JAX server's fault without one (its
+default cache leaves out the patch positions): a ``ValueError`` on both
+sides.  The window's mask and ring in one attention layer, with a scalar
+and a per-row ``pos`` whose rows straddle the wrap.
 """
 
 import dataclasses
@@ -48,7 +58,9 @@ from repro_torch.train.serve import LMServer
 
 torch.set_num_threads(2)
 
-ARCHS = ("smollm-360m", "mamba2-370m", "llama3.2-1b")
+ARCHS = ("smollm-360m", "mamba2-370m", "llama3.2-1b", "moonshot-v1-16b-a3b", "mixtral-8x7b",
+         "jamba-1.5-large-398b")
+VLM = "internvl2-2b"
 RTOL = ATOL = 1e-5
 
 
@@ -57,7 +69,7 @@ def served():
     """Per arch: (cfg, JAX model, JAX params, JAX server, port model, port
     params, port server), the port's weights converted from the JAX ones."""
     out = {}
-    for arch in ARCHS:
+    for arch in (*ARCHS, VLM):
         cfg = jget_config(arch).reduced()
         jm = jbuild(cfg)
         jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
@@ -199,7 +211,7 @@ def _cache_spec(tree):
     return {k: (tuple(v.shape), str(np.dtype(v.dtype))) for k, v in flatten_tree(tree).items()}
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", (*ARCHS, VLM))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_empty_slot_cache_shapes_match_jax(arch, dtype):
     """Built directly in the port, traced from a prefill in JAX: the same
@@ -216,7 +228,8 @@ def test_empty_slot_cache_shapes_match_jax(arch, dtype):
     assert all(not v.any() for v in got.values())
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-370m", "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b"])
 def test_insert_evict_and_slot_step_match_jax(served, arch):
     """Insert two prefilled requests into a 3-slot cache, take a
     slot-indexed decode step, evict one slot: every leaf as JAX's."""
@@ -241,6 +254,141 @@ def test_insert_evict_and_slot_step_match_jax(served, arch):
     _close_tree(tcache, jcache)
     assert all(not v[:, 2].any() for k, v in tcache.items() if k != "pos")
     assert tcache["pos"].tolist() == [13, 1, 0]
+
+
+@pytest.mark.parametrize("S", [9, 16, 23])
+@pytest.mark.parametrize("vector_pos", [False, True])
+def test_window_ring_prefill_and_decode_match_jax(S, vector_pos):
+    """One windowed attention layer (W = 8): the masked output, the ring of
+    exactly W rows whatever cache_len is (S below, at and past W), then
+    decode across the wrap; a (B,) position puts row 1 three places back,
+    so one row wraps before the other."""
+    d, H, K, hd, B, W = 64, 4, 2, 16, 2, 8
+    jp = jattn.init_attention(jax.random.PRNGKey(6), d, H, K, hd, False, jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    r = np.random.default_rng(S)
+    x = r.normal(size=(B, S, d)).astype(np.float32)
+    kw = dict(n_heads=H, n_kv=K, head_dim=hd, rotary_dim=hd, rope_theta=1e4, window=W)
+    jout, jc = jattn.attention_forward(jp, jnp.asarray(x), jnp.arange(S), return_cache=True,
+                                       cache_len=40, **kw)
+    for flash in (False, True):
+        tout, tc = tattn.attention_forward(tp, torch.from_numpy(x), torch.arange(S),
+                                           return_cache=True, cache_len=40, flash=flash, **kw)
+        _close(tout, jout)
+        for name in ("k", "v"):
+            assert tuple(tc[name].shape) == (B, W, K, hd)
+            _close(tc[name], jc[name])
+    pos = np.array([S, S - 3], np.int32) if vector_pos else np.int32(S)
+    for step in range(W + 2):
+        x1 = r.normal(size=(B, 1, d)).astype(np.float32)
+        jo, jc = jattn.attention_decode(jp, jnp.asarray(x1), jc, jnp.asarray(pos + step), **kw)
+        to, tc = tattn.attention_decode(tp, torch.from_numpy(x1), tc,
+                                        torch.as_tensor(pos + step), **kw)
+        _close(to, jo)
+        for name in ("k", "v"):
+            _close(tc[name], jc[name])
+
+
+def test_window_slots_wrapped_and_not_match_jax(served):
+    """mixtral's slot cache: a request of 20 tokens (its ring wrapped at
+    prefill) beside one of 9 (it wraps after 7 decode steps); ten
+    slot-indexed steps, every leaf as JAX's."""
+    cfg, jm, jp, _, tm, tp, _ = served["mixtral-8x7b"]
+    assert cfg.window == 16
+    jcache, tcache = jm.empty_slot_cache(jp, 2, 30), tm.empty_slot_cache(tp, 2, 30)
+    jpre = jax.jit(jm.prefill, static_argnames=("cache_len",))
+    for slot, p in enumerate(_prompts(cfg, (20, 9), seed=8)):
+        _, jc = jpre(jp, {"tokens": jnp.asarray(p[None])}, cache_len=30)
+        _, tc = tm.prefill(tp, {"tokens": torch.from_numpy(p[None])}, cache_len=30)
+        jcache = jm.cache_insert_slot(jcache, jc, slot)
+        tcache = tm.cache_insert_slot(tcache, tc, slot)
+    _close_tree(tcache, jcache)
+    jstep = jax.jit(jm.decode_step)
+    for tok in np.random.default_rng(3).integers(0, cfg.vocab, (10, 2, 1)).astype(np.int32):
+        jl, jcache = jstep(jp, jnp.asarray(tok), jcache)
+        tl, tcache = tm.decode_step(tp, torch.from_numpy(tok), tcache)
+        _close(tl, jl)
+        _close_tree(tcache, jcache)
+    assert tcache["pos"].tolist() == [30, 19]
+
+
+def test_lm_prefill_and_decode_past_the_window_match_jax(served):
+    """mixtral with a 40-token prompt (2.5 windows): the prefill's ring
+    holds the last 16 positions, and decode runs on around it; then
+    ``generate`` on the same prompts (the default cache: the ring)."""
+    cfg, jm, jp, _, tm, tp, _ = served["mixtral-8x7b"]
+    tokens = np.stack(_prompts(cfg, (40, 40), seed=5))
+    jl, jc = jax.jit(jm.prefill, static_argnames=("cache_len",))(
+        jp, {"tokens": jnp.asarray(tokens)}, cache_len=48)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(tokens)}, cache_len=48)
+    _close(tl, jl)
+    _close_tree(tc, jc)
+    assert tc["layers.0.k"].shape[2] == cfg.window
+    jstep = jax.jit(jm.decode_step)
+    for tok in np.random.default_rng(4).integers(0, cfg.vocab, (5, 2, 1)).astype(np.int32):
+        jl, jc = jstep(jp, jnp.asarray(tok), jc)
+        tl, tc = tm.decode_step(tp, torch.from_numpy(tok), tc)
+        _close(tl, jl)
+        _close_tree(tc, jc)
+    _, _, _, js, _, _, ts = served["mixtral-8x7b"]
+    want = js.generate(jp, {"tokens": jnp.asarray(tokens)}, 6)
+    np.testing.assert_array_equal(ts.generate(tp, {"tokens": tokens}, 6), np.asarray(want))
+
+
+def _vlm_batch(cfg, B=2, S=10, seed=4):
+    r = np.random.default_rng(seed)
+    return {"tokens": r.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+            "patches": (r.normal(size=(B, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)}
+
+
+def test_vlm_prefill_and_decode_match_jax(served):
+    """internvl2: the patches ahead of the tokens, their positions counted
+    in the cache and in ``pos``."""
+    cfg, jm, jp, _, tm, tp, _ = served[VLM]
+    b = _vlm_batch(cfg)
+    L = 10 + cfg.n_patches + 4
+    jl, jc = jax.jit(jm.prefill, static_argnames=("cache_len",))(
+        jp, {k: jnp.asarray(v) for k, v in b.items()}, cache_len=L)
+    tl, tc = tm.prefill(tp, {k: torch.from_numpy(v) for k, v in b.items()}, cache_len=L)
+    _close(tl, jl)
+    _close_tree(tc, jc)
+    assert int(tc["pos"]) == 10 + cfg.n_patches
+    jstep = jax.jit(jm.decode_step)
+    for tok in np.random.default_rng(9).integers(0, cfg.vocab, (3, 2, 1)).astype(np.int32):
+        jl, jc = jstep(jp, jnp.asarray(tok), jc)
+        tl, tc = tm.decode_step(tp, torch.from_numpy(tok), tc)
+        _close(tl, jl)
+        _close_tree(tc, jc)
+
+
+def test_vlm_generate_matches_jax_and_its_cache_fault(served):
+    """With a cache_len that holds the patches, ``generate`` equals JAX's.
+    Without one, both size the cache from the tokens alone (16 + 4 rows
+    for 8 + 16 positions): JAX fails in its cache padding, the port raises
+    a ``ValueError`` that names the cause."""
+    cfg, _, jp, js, _, tp, ts = served[VLM]
+    b = _vlm_batch(cfg, S=10)
+    L = 10 + cfg.n_patches + 6
+    want = js.generate(jp, {k: jnp.asarray(v) for k, v in b.items()}, 6, cache_len=L)
+    got = ts.generate(tp, b, 6, cache_len=L)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    b = _vlm_batch(cfg, S=16)
+    with pytest.raises(ValueError):
+        js.generate(jp, {k: jnp.asarray(v) for k, v in b.items()}, 4)
+    with pytest.raises(ValueError, match="patch positions"):
+        ts.generate(tp, b, 4)
+
+
+def test_encoder_only_model_is_refused_for_serving():
+    """hubert-xlarge has no decode step: both servers refuse it."""
+    jm = jbuild(jget_config("hubert-xlarge").reduced())
+    tm = build_model(get_config("hubert-xlarge").reduced())
+    with pytest.raises(ValueError, match="encoder-only"):
+        JServer(jm)
+    with pytest.raises(ValueError, match="encoder-only"):
+        LMServer(tm)
+    with pytest.raises(ValueError, match="encoder-only"):
+        tm.empty_slot_cache({}, 2, 8)
 
 
 def test_cache_converter_round_trip(served):
