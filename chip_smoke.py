@@ -120,7 +120,24 @@ never imports ``jax`` or the JAX package):
      max|logit|), ``generate`` tokens equal, and (but internvl2's, the
      engine being tokens-only) continuous batching equal to sequential
      decode, under the near-tie rule;
- 11. a JSON line of the kernels, then the card as the last line.
+ 11. the spmd backend across processes: ``python -m torch.distributed.run
+     --standalone --nproc-per-node 4 -m repro_torch.launch.train``, one rank
+     a coded worker, the four ranks sharing the card over gloo, this
+     process holding nothing on it: (a) the main path's command at full
+     width: rank 0's decode metrics equal to the CPU replay, every loss
+     finite, ``coded_reduce`` once a rank a step, every rank's params
+     bit-equal to rank 0's (sha256), the step median and each rank's peak
+     memory; (b) phase 9's faulted command on the int8 wire with
+     ``--audit-rebuilds``: m 4 -> 3 -> 2 through two group rebuilds (each
+     printed), the trajectory (m, decode metrics, repairs, attempts) equal
+     to phase 9's and the CPU replay's, one encode and one decode a live
+     rank a gradient attempt, the carried error-feedback rows bit-equal to
+     the rows before each rebuild; (c) in f32 with TF32 off, one decoded
+     gradient through the four ranks against phase 6's single-process spmd
+     one: relative L2 <= 1e-5 uncompressed; on the int8 wire bit-equal
+     wherever the gathered q and scale * a_w equal phase 6's, elsewhere
+     within one wire step max_w |a_w * scale_w|;
+ 12. a JSON line of the kernels, then the card as the last line.
 
 Each main path and serving path is driven with every kernel's launch count
 set to 0 just before it and read just after.  Exits non-zero, printing no result,
@@ -220,6 +237,10 @@ FAULT_BASE = ["--arch", ARCH, "--backend", "spmd", "--scheme", "heter_aware", "-
 FAULT_ARGS = [*FAULT_BASE, "--compress", "--wire-kernel", "on", "--faults", FAULT_SPEC,
               "--steps", str(FAULT_STEPS)]
 RESUME_ARGS = [*FAULT_BASE, "--steps", str(RESUME_STEPS)]
+# phase 11, the spmd backend across processes: its files (phase 6's saved
+# gradients, the event logs), and the time limit of one torchrun of M ranks
+GROUP_DIR = ROOT / "build" / "chip_smoke_group"
+GROUP_TIMEOUT_S = 420
 # the control-plane trajectory of a faulted run: none of it depends on width
 TRAJECTORY = ("n_used", "exact", "repaired", "skipped_nonfinite", "skipped", "sim_iter_time",
               "decode_residual", "n_stragglers", "exact_fraction")
@@ -929,6 +950,7 @@ def fault_path(torch) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return dict(wall_s=wall, steps=FAULT_STEPS, step_s=step_s, attempts=att, m=ms,
+                trajectory=[{k: h.get(k, 0.0) for k in TRAJECTORY} for h in hist],
                 launches=launches, resilience=summary["resilience"], m_final=m_final,
                 peak_gib=peak, phase_split=split, convicted=convicted, ckpt_gb=ck_gb,
                 restore_s=restore_s, resume_launches=r_launches)
@@ -941,12 +963,15 @@ def rel_l2(a: dict, b: dict) -> float:
     return (num / den) ** 0.5
 
 
-def cross_check(torch, arch: str, seq_len: int, part_mb: int, wire: bool) -> dict:
+def cross_check(torch, arch: str, seq_len: int, part_mb: int, wire: bool,
+                save: Path | None = None) -> dict:
     """Phase 6 at full width in f32, TF32 off, one faulted worker: spmd
     (kernels) vs fused (autograd), relative L2 <= 1e-4; with ``wire``, the
     compressed spmd gradient with the wire kernel on vs off, each against
     the uncompressed fused one.  The fused backend takes all m * n_slots
-    coded micro-batches in one pass, so ``part_mb`` x ``seq_len`` must fit."""
+    coded micro-batches in one pass, so ``part_mb`` x ``seq_len`` must fit.
+    ``save`` keeps the spmd and wire-on decoded gradients (flat, with the
+    int8 wire the decode read) for phase 11 (c)."""
     from repro_torch.configs import CodingConfig, TrainConfig, get_config
     from repro_torch.core.codec import Codec
     from repro_torch.data.pipeline import SyntheticData
@@ -972,8 +997,13 @@ def cross_check(torch, arch: str, seq_len: int, part_mb: int, wire: bool) -> dic
     grads = {}
     for name, kw in runs:
         eng = StepEngine(model, TrainConfig(), codec, device=dev, **kw)
+        eng.wire_out = {}
         grads[name] = eng.gradients(params, batch, outcome)
         torch.cuda.synchronize()
+        if save is not None and name in ("spmd", "wire_on"):
+            torch.save({"decoded": _flat(torch, grads[name]).cpu(),
+                        **{k: v.cpu() for k, v in eng.wire_out.items()}},
+                       save / f"emulated_{name}.pt")
         del eng
         torch.cuda.empty_cache()
     rel = rel_l2(grads["spmd"], grads["fused"])
@@ -1971,6 +2001,275 @@ def jamba_path(torch, plain_launches) -> dict:
                 fused_step=step, aux=s["aux"], aux_gap=gap)
 
 
+def torchrun(torch, label: str, target: list[str], timeout: int = GROUP_TIMEOUT_S) -> str:
+    """Phase 11's subprocess: ``python -m torch.distributed.run --standalone
+    --nproc-per-node M`` of ``target`` (``-m module ...`` or a script), the
+    ranks sharing the card over gloo, after this process emptied its CUDA
+    cache.  Any rank's failure fails the phase.  Returns rank 0's stdout
+    (the other ranks print nothing)."""
+    import gc
+
+    gc.collect()  # earlier phases' engines sit in reference cycles
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"{label}: this process holds {held / 2**30:.3f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved on the card")
+    # each target starts its own arguments with "--", which ends torchrun's
+    # options: its argparse (Python 3.12.3) would take the launcher's --s
+    # and --m for abbreviations of its own
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(M), *target]
+    log(f"{label}: " + " ".join(cmd[1:]))
+    env = {**__import__("os").environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log("  | " + line[:400])
+    if proc.returncode != 0:
+        # the ranks' own tracebacks (torchrun prefixes them), else the tail
+        lines = proc.stderr.splitlines()
+        for line in [x for x in lines if x.startswith("[rank")][:100] or lines[-60:]:
+            log("  ! " + line)
+        raise AssertionError(f"{label}: torchrun exited {proc.returncode}")
+    log(f"{label}: {M} ranks done in {wall:.2f} s wall (start-up, build lookup and init "
+        "included)")
+    return proc.stdout
+
+
+def _summary(stdout: str) -> dict:
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def _step_records(path: Path) -> list[dict]:
+    from repro_torch.launch import obs_report
+
+    return [r["args"] for r in obs_report.load_records(str(path))
+            if r["kind"] == "event" and r["name"] == "train.step"]
+
+
+def _log_ranks(label: str, summary: dict) -> None:
+    for r in summary["ranks"]:
+        log(f"  {label} rank {r['rank']} ({r['device']}, member {r['member']}): launches "
+            f"{r['launches']}, peak {r['peak_gib']} GiB, step median "
+            f"{r['step_s_median']:.4f} s, params sha256 {r['params_sha256'][:16]}")
+
+
+def group_path(torch, faults: dict) -> dict:
+    """Phase 11, the spmd backend across processes: M ranks of
+    ``repro_torch.launch.train`` on the one card over gloo, one rank a
+    coded worker: (a) the main path at full width; (b) the int8 wire under
+    phase 9's faults, m 4 -> 3 -> 2 through two group rebuilds; (c) the f32
+    cross-check of one decoded gradient against the single-process spmd
+    path (:func:`group_cross_check`)."""
+    import shutil
+
+    from repro_torch.launch.train import main as train_main
+
+    out = {}
+    try:
+        # (a) the main path
+        log("control-plane replay of the group main path (reduced width, CPU):")
+        expect = train_main([*SLICE_ARGS, "--reduced", "--device", "cpu"])["history"]
+        logf = GROUP_DIR / "main.jsonl"
+        stdout = torchrun(torch, "group (a)", ["-m", "--", "repro_torch.launch.train", *SLICE_ARGS,
+                                              "--device", "cuda", "--log-jsonl", str(logf)])
+        summary, recs = _summary(stdout), _step_records(logf)
+        _log_ranks("group (a)", summary)
+        if summary["world_size"] != M or summary["transport"] != "gloo" or \
+                summary["n_params"] != D_FULL or len(recs) != STEPS:
+            raise AssertionError(f"group (a): {summary['world_size']} ranks over "
+                                 f"{summary['transport']}, {summary['n_params']} params, "
+                                 f"{len(recs)} steps")
+        for i, (h, e) in enumerate(zip(recs, expect)):
+            if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+                raise AssertionError(f"group (a) step {i}: non-finite loss or grad norm")
+            for key, theirs in (("n_used", "n_used"), ("n_stragglers", "n_stragglers"),
+                                ("sim_iter_time", "sim_iter_time"),
+                                ("residual", "decode_residual"),
+                                ("exact_fraction", "exact_fraction"), ("skipped", "skipped")):
+                if float(h[key]) != float(e[theirs]):
+                    raise AssertionError(f"group (a) step {i}: {key} {h[key]} != "
+                                         f"control-plane replay {e[theirs]}")
+        want = {"coded_reduce": STEPS, "coded_encode_int8": 0, "coded_decode_int8": 0,
+                "ssd_scan": 0, "flash_attention": 0}
+        for r in summary["ranks"]:
+            if r["launches"] != want:
+                raise AssertionError(f"group (a) rank {r['rank']}: launches {r['launches']} "
+                                     f"!= {want} (1 coded_reduce a step)")
+        if not summary["replicas_bit_equal"]:
+            raise AssertionError("group (a): the ranks' params are not bit-equal")
+        out["main"] = dict(
+            steps=STEPS, losses=[h["loss"] for h in recs],
+            step_s_median=summary["ranks"][0]["step_s_median"],
+            peak_gib=[r["peak_gib"] for r in summary["ranks"]], wall_s=summary["wall_s"],
+            launches=summary["ranks"][0]["launches"])
+        log(f"group (a) ok: {M} ranks, {D_FULL} parameters, decode metrics == CPU replay, "
+            f"losses {out['main']['losses']}, 1 coded_reduce a rank a step, params bit-equal "
+            f"on every rank; step median {out['main']['step_s_median']:.4f} s, peaks (GiB) "
+            f"{out['main']['peak_gib']}")
+
+        # (b) the int8 wire under phase 9's faults
+        logf = GROUP_DIR / "faults.jsonl"
+        stdout = torchrun(torch, "group (b)", ["-m", "--", "repro_torch.launch.train", *FAULT_ARGS,
+                                              "--device", "cuda", "--audit-rebuilds",
+                                              "--log-jsonl", str(logf)])
+        summary = _summary(stdout)
+        from repro_torch.launch import obs_report
+
+        att = _attempts(obs_report.load_records(str(logf)))
+        recs = _step_records(logf)
+        _log_ranks("group (b)", summary)
+        rank0 = summary["ranks"][0]
+        moves = [rb for rb in rank0["rebuilds"] if rb["m_before"] != rb["m_after"]]
+        for rb in moves:
+            log(f"  group (b) rebuild: m {rb['m_before']} -> {rb['m_after']}, err rows carried "
+                f"{rb['err_rows_carried']} zeroed {rb['err_rows_zeroed']}, {rb['ms']:.1f} ms, "
+                f"group rebuilt {rb['mesh_rebuilt']}")
+        for a in rank0["row_audits"]:
+            log(f"  group (b) row audit at m {a['m_before']} -> {a['m_after']}: moved (old rank, "
+                f"new rank) {a['moved']}, carried {len(a['carried'])}, zeroed {a['zeroed']}, "
+                f"bit-equal {a['ok']}")
+        if [(rb["m_before"], rb["m_after"]) for rb in moves] != [(4, 3), (3, 2)]:
+            raise AssertionError(f"group (b): rebuilds {moves}, expected m 4 -> 3 -> 2")
+        audits = rank0["row_audits"]
+        if len(audits) != 2 or not all(a["ok"] for a in audits) or \
+                any(rb["err_rows_carried"] != rb["m_after"] for rb in moves):
+            raise AssertionError(f"group (b): carried rows not bit-equal: {audits}")
+        if att != faults["attempts"] or len(recs) != FAULT_STEPS:
+            raise AssertionError(f"group (b): attempts {att} != phase 9's {faults['attempts']}")
+        for i, (h, e) in enumerate(zip(recs, faults["trajectory"])):
+            for key in TRAJECTORY:
+                got = h.get("residual" if key == "decode_residual" else key, 0.0)
+                if float(got) != float(e.get(key, 0.0)):
+                    raise AssertionError(f"group (b) step {i}: {key} {got} != phase 9 / CPU "
+                                         f"replay {e.get(key)}")
+            if not (math.isfinite(h["loss"]) or h["skipped_nonfinite"]):
+                raise AssertionError(f"group (b) step {i}: non-finite and not skipped")
+        if summary["resilience"] != faults["resilience"] or summary["m_final"] != faults["m_final"]:
+            raise AssertionError(f"group (b): {summary['resilience']} m_final "
+                                 f"{summary['m_final']} != phase 9's")
+        for r in summary["ranks"]:
+            live = sum(n for n, m in att if r["rank"] < m)  # attempts this rank took part in
+            want = {"coded_reduce": live, "coded_encode_int8": live, "coded_decode_int8": live,
+                    "ssd_scan": 0, "flash_attention": 0}
+            if r["launches"] != want:
+                raise AssertionError(f"group (b) rank {r['rank']}: launches {r['launches']} "
+                                     f"!= {want} (1 encode + 1 decode an attempt)")
+        if not summary["replicas_bit_equal"]:
+            raise AssertionError("group (b): the live ranks' params are not bit-equal")
+        out["faults"] = dict(
+            attempts=att, m=[m for _, m in att], rebuilds=moves, row_audits=audits,
+            step_s_median=rank0["step_s_median"], peak_gib=[r["peak_gib"] for r in summary["ranks"]],
+            launches={r["rank"]: r["launches"] for r in summary["ranks"]},
+            wall_s=summary["wall_s"])
+        log(f"group (b) ok: m {out['faults']['m']} through 2 group rebuilds, trajectory == phase "
+            f"9 and the CPU replay, 1 encode + 1 decode a live rank an attempt, carried rows "
+            f"bit-equal, live params bit-equal")
+
+        # (c) the f32 cross-check against the single-process spmd path
+        out["cross_check"] = group_cross_check(torch)
+    finally:
+        shutil.rmtree(GROUP_DIR, ignore_errors=True)
+    return out
+
+
+def _cross_check_inputs(torch, dev):
+    """Phase 6's f32 inputs: the full-width model in f32, random weights from
+    seed 0, heter_aware s=1 m=M, worker 1 faulted, micro-batches of 2 x 64."""
+    from repro_torch.configs import CodingConfig, get_config
+    from repro_torch.core.codec import Codec
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.lm import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    model = build_model(cfg)
+    codec = Codec.from_config(CodingConfig(scheme="heter_aware", s=S), m=M, rng=1)
+    outcome = codec.decode_outcome([w for w in range(M) if w != 1])
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = SyntheticData(cfg, k=codec.k, part_mb=2, seq_len=64, seed=0).batch(0)
+    return model, codec, outcome, params, batch
+
+
+def _flat(torch, g: dict):
+    return torch.cat([v.reshape(-1).float() for v in g.values()])
+
+
+def group_cross_check(torch) -> dict:
+    """Phase 11 (c): one decoded gradient at full width in f32, TF32 off,
+    through M ranks (:func:`group_cross_check_rank`) against the
+    single-process spmd path on the same inputs, saved under build/ by
+    phase 6's :func:`cross_check`.  Uncompressed: relative L2 <= 1e-5 (only the
+    summation order differs).  The int8 wire: bit-equal wherever the
+    gathered q and scale * a_w equal the single-process ones, elsewhere
+    within one wire step, max_w |a_w * scale_w|."""
+    torchrun(torch, "group (c)", ["--", str(ROOT / "chip_smoke.py"), "--group-cross-check",
+                                  str(GROUP_DIR)])
+    res = json.loads((GROUP_DIR / "cross_check.json").read_text())
+    log(f"group (c): uncompressed, {M} ranks vs one process: relative L2 {res['rel_l2']:.3e} "
+        f"(limit 1e-5); int8 wire: gathered q equal on {res['q_equal_share']:.6f} of the "
+        f"elements, scale*a_w equal {res['ws_equal']}, {res['bit_equal_share']:.6f} of the "
+        f"decoded elements bit-equal, max |diff| {res['max_abs_diff']:.3e} where q differ "
+        f"(one wire step {res['wire_step']:.3e})")
+    if not res["ok"]:
+        raise AssertionError(f"group (c) cross-check failed: {res}")
+    log("group (c) ok")
+    return res
+
+
+def group_cross_check_rank(out_dir: str) -> int:
+    """One rank of phase 11 (c), started by ``torch.distributed.run``."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import init_coded_group, remesh_for_m
+    from repro_torch.train.engine import StepEngine
+
+    world = init_coded_group("cuda")
+    group = remesh_for_m(world, M)
+    model, codec, outcome, params, batch = _cross_check_inputs(torch, group.device)
+    res: dict = {}
+    ok = True
+    for name, kw in (("plain", {}), ("wire", dict(compress=True, wire_kernel=True))):
+        eng = StepEngine(model, TrainConfig(), codec, backend="spmd", group=group, **kw)
+        eng.wire_out = {}
+        flat = _flat(torch, eng.gradients(params, batch, outcome))
+        if group.rank == 0:
+            emu = torch.load(Path(out_dir) / f"emulated_{'spmd' if name == 'plain' else 'wire_on'}.pt")
+            ref = emu["decoded"].to(flat.device)
+            if name == "plain":
+                rel = float((flat.double() - ref.double()).norm() / ref.double().norm())
+                res["rel_l2"] = rel
+                ok = ok and rel <= 1e-5
+            else:
+                q, ws = eng.wire_out["q"], eng.wire_out["ws"]
+                q_eq = (q == emu["q"].to(q.device)).all(0)
+                ws_eq = bool(torch.equal(ws, emu["ws"].to(ws.device)))
+                bits = flat.view(torch.int32) == ref.view(torch.int32)
+                step = float(ws.abs().max())
+                same_wire = q_eq if ws_eq else torch.zeros_like(q_eq)
+                diff = (flat - ref).abs()
+                off = diff[~same_wire]
+                res.update(
+                    q_equal_share=float(q_eq.float().mean()), ws_equal=ws_eq,
+                    bit_equal_share=float(bits.float().mean()), wire_step=step,
+                    max_abs_diff=float(off.max()) if off.numel() else 0.0,
+                    bit_equal_where_wire_equal=bool(bits[same_wire].all()))
+                ok = ok and res["bit_equal_where_wire_equal"] and res["max_abs_diff"] <= step
+        del eng, flat
+        torch.cuda.empty_cache()
+    if group.rank == 0:
+        res["ok"] = bool(ok)
+        (Path(out_dir) / "cross_check.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc" / "coded_reduce.cu").is_file():
         print("chip_smoke: run from the root of a checkout (src/repro_torch missing)",
@@ -2045,7 +2344,11 @@ def main() -> int:
     run = main_path(torch, "spmd", SLICE_ARGS, plain_launches)
     wire_run = main_path(torch, "spmd --compress", WIRE_ARGS, wire_launches,
                          on_step=check_err_after_step(torch))
-    xc = cross_check(torch, ARCH, seq_len=64, part_mb=2, wire=True)
+    import shutil
+
+    shutil.rmtree(GROUP_DIR, ignore_errors=True)
+    GROUP_DIR.mkdir(parents=True)
+    xc = cross_check(torch, ARCH, seq_len=64, part_mb=2, wire=True, save=GROUP_DIR)
     log(f"mamba2 main path: {passes} forward passes a step (m * n_slots = {M * n_slots} "
         f"gradients + 1 loss), so ssd_scan {passes * MAMBA_LAYERS} launches a step")
     # one profiled step, mamba2's: the smollm paths' profiles (PERF.md § 5)
@@ -2083,7 +2386,10 @@ def main() -> int:
     fam_f32 = {arch: reduced_f32_check(torch, arch)
                for arch in ("moonshot-v1-16b-a3b", "mixtral-8x7b", "internvl2-2b", JAMBA)}
 
-    # 11. the kernels line, then the card
+    # 11. the spmd backend across processes: M ranks on the card over gloo
+    group = group_path(torch, faults)
+
+    # 12. the kernels line, then the card
     kernels = [{
         "name": "coded_reduce",
         "route": "cuda",
@@ -2100,6 +2406,7 @@ def main() -> int:
         "launches_fault_path": faults["launches"]["coded_reduce"],
         "launches_resume": faults["resume_launches"]["coded_reduce"],
         "launches_hubert": hubert["launches"]["coded_reduce"],
+        "launches_group_rank0": group["main"]["launches"]["coded_reduce"],
         "hubert_shapes": [{k: t[k] for k in ("P", "D", "ms", "plain_ms", "bound_ms",
                                              "library_ms", "max_abs_err")}
                           for t in hubert_reduce],
@@ -2117,6 +2424,8 @@ def main() -> int:
         "shape": f"f32 ({wenc['P']}, {wenc['D']}) + err -> int8 q, scale, new_err in place",
         "oracle_cases_bit_equal": n_bit,
         "launches_fault_path": faults["launches"]["coded_encode_int8"],
+        "launches_group_faults": {r: la["coded_encode_int8"]
+                                  for r, la in group["faults"]["launches"].items()},
         "wire_kernel_default": auto,
     }, {
         "name": "coded_decode_int8",
@@ -2132,6 +2441,8 @@ def main() -> int:
                  "int8 instantiation",
         "checks_worst_scaled_err": dec_worst,
         "launches_fault_path": faults["launches"]["coded_decode_int8"],
+        "launches_group_faults": {r: la["coded_decode_int8"]
+                                  for r, la in group["faults"]["launches"].items()},
     }, {
         "name": "ssd_scan",
         "route": "cuda",
@@ -2201,6 +2512,7 @@ def main() -> int:
     log(f"summary: hubert-xlarge spmd step {hubert['step_s']:.4f} s (median), peak "
         f"{hubert['peak_gib']:.2f} GiB, losses {hubert['losses']}, launches {hubert['launches']}")
     log(f"summary: family f32 checks {json.dumps(fam_f32, default=str)}")
+    log(f"summary: group {json.dumps(group, default=str)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2208,4 +2520,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--group-cross-check"]:
+        sys.exit(group_cross_check_rank(sys.argv[2]))
     sys.exit(main())

@@ -13,6 +13,8 @@
     caller's thread (the only sync point) and serializes and writes it on a
     worker thread, so the step loop never waits on the disk.
   - *atomic*: writes go to ``<dir>.tmp``, then ``os.replace``.
+  - *one writer across processes*: with a process group, rank 0 writes and
+    the other ranks wait for it at a barrier; every rank restores.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.placement import leaf_key, load_arrays, place_state
+from repro_torch.launch.mesh import barrier
 
 __all__ = ["AsyncCheckpointer", "latest_step", "restore_checkpoint", "save_checkpoint"]
 
@@ -107,16 +110,25 @@ def restore_checkpoint(
 class AsyncCheckpointer:
     """Off-critical-path checkpointing: a host copy on the caller's thread
     (the step updates the tensors in place, so the copy is taken before the
-    next step), serialization and the write on a worker thread."""
+    next step), serialization and the write on a worker thread.
 
-    def __init__(self, directory: str, keep: int = 3):
+    With ``group`` (a :class:`~repro_torch.launch.mesh.CodedGroup`; every
+    rank of the world holds the same replicated state) only rank 0 copies
+    and writes; :meth:`wait`, which every rank calls at the same points
+    (each :meth:`save` starts with one), holds the other ranks at a barrier
+    until rank 0's previous write is on disk."""
+
+    def __init__(self, directory: str, keep: int = 3, group=None):
         self.directory = directory
         self.keep = keep
+        self.group = group
         self._thread: threading.Thread | None = None
         self.last_error: BaseException | None = None
 
     def save(self, step: int, state: Any, meta: dict | None = None) -> None:
         self.wait()
+        if self.group is not None and self.group.rank != 0:
+            return
         host_state = _flatten(state)
 
         def _write():
@@ -133,6 +145,8 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None:
+            barrier()
         if self.last_error is not None:
             err, self.last_error = self.last_error, None
             raise err

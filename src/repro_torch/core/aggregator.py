@@ -15,9 +15,13 @@ Three implementations of the same math:
    ``compress`` the wire is int8 with per-worker error feedback, encoded by
    the fused ``coded_encode_int8`` kernel and decoded straight off the int8
    payloads (``wire_kernel``), or by ``coded_reduce`` and the plain
-   quantize.  The JAX package runs the workers as a ``shard_map`` over m
-   devices with a psum (or int8 all_gather) decode; here one process runs
-   the m workers in turn on one device.
+   quantize.  One process runs the m workers in turn on one device.
+4. :func:`group_spmd_step` — the same protocol across processes, as the JAX
+   package's ``shard_map`` runs it across devices: this rank is one coded
+   worker of a ``torch.distributed`` group, encodes its own stack, and the
+   decode is one ``all_reduce`` of a_w·g̃_w (JAX's psum) or, on the int8
+   wire, an ``all_gather`` of the payloads and of scale·a_w feeding one
+   ``coded_decode_int8`` launch on every rank.
 
 The numpy half (:class:`CodedPlan`, :func:`make_plan`, the host slot
 weights) is a copy of the JAX module's; the ``*_device`` functions are its
@@ -37,6 +41,7 @@ from repro_torch.core.decoding import Decoder
 from repro_torch.kernels.coded_reduce import coded_reduce
 from repro_torch.kernels.ref import dequantize, quantize_int8
 from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
+from repro_torch.launch.mesh import CodedGroup, all_gather_flat, all_reduce_sum_
 
 __all__ = [
     "CodedPlan",
@@ -51,6 +56,7 @@ __all__ = [
     "protocol_reference",
     "fused_coded_value_and_grad",
     "faithful_spmd_step",
+    "group_spmd_step",
     "remap_err_rows",
     "FlatView",
 ]
@@ -334,6 +340,7 @@ def faithful_spmd_step(
     *,
     compress: bool = False,
     wire_kernel: bool = False,
+    wire: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Per-worker flat encode and the master decode, on one device.
 
@@ -357,7 +364,9 @@ def faithful_spmd_step(
     encode launches and 1 decode launch a step.  Without it the encode is
     ``coded_reduce``, then ``+ err``, ``quantize_int8``, ``dequantize`` and
     the residual in plain torch (the JAX package's unfused wire), and the
-    decode one ``coded_reduce`` over the (m, D) dequantized stack.
+    decode one ``coded_reduce`` over the (m, D) dequantized stack.  A
+    ``wire`` dict receives the int8 wire the decode read, ``q`` (m, D) and
+    ``ws`` (m,), for inspection.
 
     Returns ``(decoded f32 (D,), err)``."""
     view = view if view is not None else FlatView(params)
@@ -394,5 +403,84 @@ def faithful_spmd_step(
             del deq
     del gstack
     if fused_wire:
-        return coded_decode_int8(q_all, a.float() * scales), err
+        ws = a.float() * scales
+        if wire is not None:
+            wire.update(q=q_all, ws=ws)
+        return coded_decode_int8(q_all, ws), err
     return coded_reduce(coded, a.float().contiguous(), torch.float32), err
+
+
+# ---------------------------------------------------------------------------
+# 4. the wire protocol across processes, one rank a worker
+# ---------------------------------------------------------------------------
+
+
+def group_spmd_step(
+    loss_fn: LossFn,
+    params: Params,
+    slot_batch: Batch,
+    coeff: torch.Tensor,
+    a: torch.Tensor,
+    err: torch.Tensor | None,
+    view: FlatView,
+    group: CodedGroup,
+    *,
+    compress: bool = False,
+    wire_kernel: bool = False,
+    wire: dict | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """This rank's worker encode and the collective decode: the JAX
+    ``faithful_spmd_step``'s ``worker_fn`` on one rank of ``group``.
+
+    ``slot_batch`` leaves are this worker's (n_slots, mb, ...) slots,
+    ``coeff`` (n_slots,) its effective B coefficients and ``a`` (m,) the
+    whole decode vector already scaled by 1/k (every rank holds it).  The
+    worker ravels its slot gradients into an f32 (n_slots, D) stack, as the
+    emulated path does, and then:
+
+      - uncompressed: one ``coded_reduce`` launch, ``coded·a_w``, then one
+        ``all_reduce`` (SUM) over the group — 1 launch a rank a step;
+      - ``compress`` with ``wire_kernel``: one ``coded_encode_int8`` launch
+        (the residual into ``err``, this worker's (D,) row, in place), an
+        ``all_gather`` of the int8 payloads into an (m·D,) buffer and of
+        scale·a_w into (m,), then one ``coded_decode_int8`` launch on
+        every rank — 1 encode and 1 decode a rank a step;
+      - ``compress`` without it: ``coded_reduce``, ``+ err``, the plain
+        quantize and residual, then the ``all_reduce`` of deq·a_w.
+
+    A NaN a_w poisons every rank's result, as the JAX psum does.  Every
+    rank ends with the same bits: an ``all_reduce`` hands every rank one
+    sum, and the int8 decode reads the same gathered wire everywhere.
+    ``wire`` receives the gathered ``q`` (m, D) and ``ws`` (m,).
+
+    Returns ``(decoded f32 (D,), err)``."""
+    n_slots = int(coeff.shape[0])
+    dev = coeff.device
+    if compress and (err is None or tuple(err.shape) != (view.size,)):
+        raise ValueError(f"compress needs a ({view.size},) f32 err row")
+    grad = _grad_fn(loss_fn)
+    gstack = torch.empty((n_slots, view.size), dtype=torch.float32, device=dev)
+    for s in range(n_slots):
+        _, g = grad(params, {key: x[s] for key, x in slot_batch.items()})
+        view.write(gstack[s], g)
+        del g
+    cw = coeff.contiguous()
+    a_w = a[group.rank].float()
+    if compress and wire_kernel:
+        q, scale, _ = coded_encode_int8(gstack, cw, err, out_err=err)
+        del gstack
+        q_all = all_gather_flat(q, group).view(group.m, view.size)
+        del q
+        ws = all_gather_flat(scale * a_w, group)
+        if wire is not None:
+            wire.update(q=q_all, ws=ws)
+        return coded_decode_int8(q_all, ws), err
+    coded = coded_reduce(gstack, cw, torch.float32)
+    del gstack
+    if compress:
+        coded.add_(err)
+        deq = dequantize(*quantize_int8(coded))
+        torch.sub(coded, deq, out=err)
+        coded.copy_(deq)
+        del deq
+    return all_reduce_sum_(coded.mul_(a_w), group), err

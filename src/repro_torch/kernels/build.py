@@ -6,14 +6,21 @@ library of its own with a plain C interface, at first use, into
 are started together and run in parallel.  Each library's name carries a
 hash of every source in ``csrc/`` (headers included) and of the flags, so
 an edit to any of them rebuilds all, and a finished build is reused by
-later processes.  The libraries are loaded with ``ctypes``; each kernel
-module binds its own functions' signatures.  No source includes PyTorch's
-headers, so a build takes seconds.
+later processes.  Processes that start together on a cold build
+directory (the ranks of one ``torch.distributed.run``) take an exclusive
+``flock`` on ``build/repro_torch_kernels/.lock`` around the build, so one
+of them runs ``nvcc`` for each source and the others find its libraries;
+the kernel closes the lock with the process, so a killed build leaves none
+behind.  The libraries are loaded with ``ctypes``; each kernel module binds
+its own functions' signatures.  No source includes PyTorch's headers, so a
+build takes seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -60,52 +67,68 @@ def _sources_key() -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _process_lock():
+    """Exclusive across the processes of this host, released on exit."""
+    with open(_BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, ctypes.CDLL]:
     """Compile what is not built yet (in parallel) and load every kernel
     library, keyed by source stem (``"coded_reduce"``, ``"wire_encode"``)."""
     with _lock:
         if _libs:
             return _libs
-        key = _sources_key()
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        sources: dict[str, dict] = {}
-        running: dict[str, tuple[subprocess.Popen, Path, Path, Path]] = {}
-        try:
-            for src in sorted(_CSRC.glob("*.cu")):
-                so = _BUILD_DIR / f"{src.stem}_{key}.so"
-                report = so.with_suffix(".ptxas.txt")
-                if so.exists():
-                    ptxas = report.read_text() if report.exists() else ""
-                    sources[src.stem] = dict(path=str(so), ptxas=ptxas, cached=True)
-                    continue
-                tmp = _BUILD_DIR / f".{src.stem}_{key}.{os.getpid()}.so"
-                proc = subprocess.Popen(
-                    [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        with _process_lock():
+            return _build_locked()
+
+
+def _build_locked() -> dict[str, ctypes.CDLL]:
+    key = _sources_key()
+    t0 = time.perf_counter()
+    sources: dict[str, dict] = {}
+    running: dict[str, tuple[subprocess.Popen, Path, Path, Path]] = {}
+    try:
+        for src in sorted(_CSRC.glob("*.cu")):
+            so = _BUILD_DIR / f"{src.stem}_{key}.so"
+            report = so.with_suffix(".ptxas.txt")
+            if so.exists():
+                ptxas = report.read_text() if report.exists() else ""
+                sources[src.stem] = dict(path=str(so), ptxas=ptxas, cached=True)
+                continue
+            tmp = _BUILD_DIR / f".{src.stem}_{key}.{os.getpid()}.so"
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            running[src.stem] = (proc, tmp, so, report)
+        for stem, (proc, tmp, so, report) in running.items():
+            _, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) on {_CSRC / stem}.cu:\n{stderr}"
                 )
-                running[src.stem] = (proc, tmp, so, report)
-            for stem, (proc, tmp, so, report) in running.items():
-                _, stderr = proc.communicate()
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) on {_CSRC / stem}.cu:\n{stderr}"
-                    )
-                report.write_text(stderr)
-                os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-                sources[stem] = dict(path=str(so), ptxas=stderr, cached=False)
-        finally:
-            for proc, *_ in running.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        libs = {stem: ctypes.CDLL(info["path"]) for stem, info in sources.items()}
-        BUILD_INFO.update(
-            dir=str(_BUILD_DIR), key=key, seconds=time.perf_counter() - t0,
-            cached=not running, sources=sources,
-        )
-        _libs.update(libs)
-        return _libs
+            report.write_text(stderr)
+            os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+            sources[stem] = dict(path=str(so), ptxas=stderr, cached=False)
+    finally:
+        for proc, *_ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    libs = {stem: ctypes.CDLL(info["path"]) for stem, info in sources.items()}
+    BUILD_INFO.update(
+        dir=str(_BUILD_DIR), key=key, seconds=time.perf_counter() - t0,
+        cached=not running, sources=sources,
+    )
+    _libs.update(libs)
+    return _libs
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -24,7 +24,18 @@ and resumed from the newest checkpoint (params and optimizer state; the
 worker count may differ):
   ... --steps 10 --ckpt-dir /tmp/ck --resume
 
-The flags and defaults are the JAX launcher's, plus ``--device``.  The
+Across processes, one ``torch.distributed`` rank a coded worker (the JAX
+launcher's ``(m, 1)`` mesh), the ranks sharing the card over gloo or each on
+a card of its own over NCCL:
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m -- repro_torch.launch.train --arch smollm-360m --backend spmd --m 4 ...
+(``--device cpu`` runs the ranks on the CPU over gloo.)  Only rank 0 prints,
+writes the trace, the event log and the checkpoints; its summary gains
+``ranks``: each rank's kernel launches, peak memory, step time, params
+digest and elastic rebuilds.
+
+The flags and defaults are the JAX launcher's, plus ``--device`` and
+``--audit-rebuilds``.  Without ``torch.distributed.run``'s environment the
 ``spmd`` backend runs the m coded workers in turn in this one process on
 one device.
 """
@@ -32,7 +43,10 @@ one device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
+import statistics
 import time
 
 import numpy as np
@@ -44,6 +58,16 @@ from repro_torch.configs import CodingConfig, TrainConfig, get_config
 from repro_torch.core.registry import scheme_names
 from repro_torch.core.straggler import FixedDelayStragglers, NoStragglers, TransientStragglers
 from repro_torch.data.pipeline import SyntheticData
+from repro_torch.kernels.coded_reduce import coded_reduce
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
+from repro_torch.launch.mesh import (
+    all_gather_objects,
+    init_coded_group,
+    launched_by_torchrun,
+    remesh_for_m,
+)
 from repro_torch.models.lm import build_model
 from repro_torch.obs.trace import Tracer
 from repro_torch.resilience import parse_fault_spec
@@ -128,7 +152,40 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the model and kernels run (cpu: plain PyTorch "
                          "versions of the kernels, for tests)")
+    ap.add_argument("--audit-rebuilds", action="store_true",
+                    help="under torch.distributed.run: after every elastic group "
+                         "rebuild, check that each carried error-feedback row is "
+                         "bit-equal to its worker's row before it (a sha256 of "
+                         "every row, gathered across the ranks)")
     return ap
+
+
+_KERNELS = {"coded_reduce": coded_reduce, "coded_encode_int8": coded_encode_int8,
+            "coded_decode_int8": coded_decode_int8, "ssd_scan": ssd_scan,
+            "flash_attention": flash_attention}
+
+
+def _params_digest(params) -> str:
+    h = hashlib.sha256()
+    for key, p in params.items():
+        h.update(key.encode() + p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_report(trainer, state, step_s, rebuilds) -> dict:
+    """This rank's part of the summary's ``ranks``."""
+    eng = trainer.engine
+    dev = eng.device
+    return {
+        "rank": eng.group.rank, "device": str(dev), "member": eng.group.member,
+        "launches": {name: fn.launches for name, fn in _KERNELS.items()},
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else None),
+        "step_s_median": statistics.median(step_s) if step_s else None,
+        "params_sha256": _params_digest(state.params),
+        "rebuilds": [dataclasses.asdict(r) for r in rebuilds],
+        "row_audits": eng.row_audits,
+    }
 
 
 def main(argv=None, on_step=None) -> dict:
@@ -142,6 +199,31 @@ def main(argv=None, on_step=None) -> dict:
             "run the plain PyTorch path on the CPU)"
         )
     device = torch.device(args.device)
+    group = None
+    if args.backend == "spmd" and launched_by_torchrun():
+        world = init_coded_group(args.device)
+        if world.world_size < args.m:
+            torch.distributed.destroy_process_group()
+            raise SystemExit(
+                f"--backend spmd needs >= {args.m} ranks for m={args.m} coded workers, "
+                f"found {world.world_size}; launch via python -m torch.distributed.run "
+                f"--nproc-per-node {args.m} -m -- repro_torch.launch.train ... (or more, so "
+                f"membership can grow)"
+            )
+        group = remesh_for_m(world, args.m)
+        device = group.device
+    try:
+        return _run(args, device, group, on_step)
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device: torch.device, group, on_step) -> dict:
+    lead = group is None or group.rank == 0  # prints and writes files
+    if group is not None and lead:
+        print(f"process group: {group.world_size} ranks, {group.transport} transport "
+              f"({group.why}), rank 0 on {device}", flush=True)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -166,7 +248,7 @@ def main(argv=None, on_step=None) -> dict:
         )
     tracer = (
         Tracer(capacity=args.trace_capacity)
-        if (args.trace_out or args.log_jsonl)
+        if lead and (args.trace_out or args.log_jsonl)
         else None
     )
     faults = parse_fault_spec(args.faults) if args.faults else None
@@ -174,13 +256,14 @@ def main(argv=None, on_step=None) -> dict:
         model, coding, tc, m=args.m, part_mb=args.part_mb,
         straggler_model=straggler_from_args(args), true_speeds=speeds, rng=args.seed,
         backend=args.backend, deadline_policy=policy, trace=tracer,
-        faults=faults, fault_seed=args.fault_seed, device=device,
+        faults=faults, fault_seed=args.fault_seed, device=device, group=group,
     )
+    trainer.engine.audit_rows = args.audit_rebuilds
     data = SyntheticData(cfg, k=trainer.k, part_mb=args.part_mb, seq_len=args.seq_len,
                          seed=args.seed)
     state = trainer.init_state(args.seed)
     start = 0
-    ckpt = AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
+    ckpt = AsyncCheckpointer(args.ckpt_dir, group=group) if args.ckpt_dir else None
     if ckpt and args.resume:
         last = latest_step(args.ckpt_dir)
         if last is not None:
@@ -188,22 +271,32 @@ def main(argv=None, on_step=None) -> dict:
             restored, meta = restore_checkpoint(args.ckpt_dir, last, like)
             state = TrainerState(params=restored["params"], opt=restored["opt"], step=last)
             start = last
-            print(f"resumed from step {last} (saved with m={meta.get('m')}, now m={args.m})")
+            if lead:
+                print(f"resumed from step {last} (saved with m={meta.get('m')}, "
+                      f"now m={args.m})")
 
     t0 = time.time()
     totals = {"sim": 0.0}
     history: list[dict] = []
     step_s: list[float] = []  # host seconds per step (each step ends in a device sync)
+    rebuilds: list = []  # the engine's elastic rebuild reports, in order
     last = [time.perf_counter()]
 
     def log_step(step, st, metrics):
         now = time.perf_counter()
         step_s.append(now - last[0])
         history.append(metrics)
+        rb = trainer.engine.last_rebuild
+        if rb is not None and (not rebuilds or rb is not rebuilds[-1]):
+            rebuilds.append(rb)
+            if lead and rb.m_before != rb.m_after:
+                print(f"rebuild at step {step}: m {rb.m_before} -> {rb.m_after}, err rows "
+                      f"carried {rb.err_rows_carried} zeroed {rb.err_rows_zeroed}, "
+                      f"{rb.ms:.1f} ms", flush=True)
         totals["sim"] += (
             metrics["sim_iter_time"] if np.isfinite(metrics["sim_iter_time"]) else 0.0
         )
-        if step % args.log_every == 0 or step == args.steps - 1:
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
             print(
                 f"step {step:5d} loss {metrics['loss']:.4f} gnorm {metrics['grad_norm']:.3f} "
                 f"sim_T {metrics['sim_iter_time']:.3f}s stragglers {metrics['n_stragglers']:.0f} "
@@ -244,7 +337,17 @@ def main(argv=None, on_step=None) -> dict:
         "device": str(device), "backend": args.backend,
         "compress": args.compress, "wire_kernel": trainer.engine.wire_kernel,
     }
-    print(json.dumps(summary))
+    if group is not None:
+        ranks = all_gather_objects(_rank_report(trainer, state, step_s, rebuilds), group)
+        members = [r for r in ranks if r["member"]]
+        summary.update(
+            world_size=group.world_size, transport=group.transport,
+            n_params=sum(p.numel() for p in state.params.values()), ranks=ranks,
+            replicas_bit_equal=all(r["params_sha256"] == ranks[0]["params_sha256"]
+                                   for r in members),
+        )
+    if lead:
+        print(json.dumps(summary), flush=True)
     return {"summary": summary, "history": history, "step_s": step_s,
             "trainer": trainer, "state": state, "data": data}
 

@@ -28,6 +28,15 @@ default) it is the NULL singleton and the numerics are bit-equal either
 way.  ``state_extras`` carries the control-plane state beyond (params,
 opt) for a bit-exact resume.
 
+Across processes (``group=``, a :class:`~repro_torch.launch.mesh.CodedGroup`),
+one ``torch.distributed`` rank a coded worker: every rank of the world
+builds the same trainer and runs the whole control plane in lockstep
+(clocks, decode, supervisor, elastic transitions); the engine agrees each
+step's decode vector and support mask from rank 0, the members encode and
+decode, and rank 0's metrics reach every rank, so every rank takes the same
+decisions.  A rank outside the current group skips the gradient and the
+update and rejoins through the engine's re-place of rank 0's state.
+
 The engine updates params and optimizer moments in place where the JAX
 engine donates buffers.  A non-finite decoded gradient never reaches them
 (``StepEngine._adamw`` skips the update), so a repair attempt starts from
@@ -50,6 +59,7 @@ from repro_torch.core.decoding import DecodeOutcome
 from repro_torch.core.registry import MembershipStats
 from repro_torch.core.simulator import ChurnSchedule, FaultSchedule
 from repro_torch.core.straggler import NoStragglers, StragglerModel, StragglerProfile
+from repro_torch.launch.mesh import CodedGroup
 from repro_torch.obs.straggler import StragglerForensics
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.resilience.supervisor import FaultSupervisor
@@ -63,7 +73,8 @@ _SKIP_METRICS = {"loss": float("nan"), "grad_norm": float("nan"), "lr": float("n
 
 
 class CodedTrainer:
-    """Coded data-parallel trainer over ``m`` logical workers on one device.
+    """Coded data-parallel trainer over ``m`` logical workers on one device,
+    or one rank a worker across the processes of ``group``.
 
     ``true_speeds`` drive the timing simulation; the throughput *estimator*
     only sees observations.
@@ -90,6 +101,7 @@ class CodedTrainer:
         fault_seed: int = 0,
         supervisor: FaultSupervisor | None = None,
         device: torch.device | str = "cuda",
+        group: CodedGroup | None = None,
     ):
         self.model = model
         self.coding = coding
@@ -104,7 +116,7 @@ class CodedTrainer:
         self.codec = Codec.from_config(coding, m=m, c_init=c_init, rng=rng + 1)
         self.engine = StepEngine(
             model, train, self.codec, backend=backend, device=device,
-            compress=coding.compress, wire_kernel=coding.wire_kernel,
+            compress=coding.compress, wire_kernel=coding.wire_kernel, group=group,
         )
         # resilience: a fault schedule makes the controller's sim a
         # FaultyClusterSim; a supervisor closes the detect/evict loop.  Either

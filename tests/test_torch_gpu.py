@@ -1,13 +1,18 @@
 """The port's CUDA kernels against their plain PyTorch versions and the
 wire format's bit oracle, on the card: coded_reduce, the int8 wire encode
 and decode, the SSD scan (with its autograd Function) and flash attention;
-and a reduced serving run whose prefill launches the kernels.
+and a reduced serving run whose prefill launches the kernels; and two
+``torch.distributed`` ranks sharing the card over gloo, whose decoded
+gradient is held to the single-process spmd path's (the ranks are
+subprocesses of this file: ``python tests/test_torch_gpu.py OUT_DIR``).
 
 Marked ``gpu``: they skip with a reason where no CUDA card is present.  On
 the H100 run them with ``python -m pytest -m gpu tests/test_torch_gpu.py``
 (this file imports neither ``jax`` nor the JAX package, so it runs where
 only the port's dependencies are installed).
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -702,3 +707,114 @@ def test_cuda_stacked_init_draws_one_slab_at_a_time(cuda_device):
     std = float(p["w_gate"][3].float().std())
     assert abs(std - 0.8796 * 64**-0.5) <= 0.01 * 64**-0.5
     assert p["router"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the spmd backend across processes: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+GROUP_M = 2
+
+
+def _group_inputs(dev):
+    """The reduced smollm-360m in f32, heter_aware s=1 m=2, all workers
+    decoded, micro-batches of 2 x 16 tokens, weights from seed 0."""
+    import dataclasses
+
+    from repro_torch.configs import CodingConfig, get_config
+    from repro_torch.core.codec import Codec
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.lm import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), dtype="float32")
+    model = build_model(cfg)
+    codec = Codec.from_config(CodingConfig(scheme="heter_aware", s=1), m=GROUP_M, rng=1)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = SyntheticData(cfg, k=codec.k, part_mb=2, seq_len=16, seed=0).batch(0)
+    return model, codec, codec.decode_outcome(range(GROUP_M)), params, batch
+
+
+_GROUP_RUNS = (("plain", {}), ("wire", dict(compress=True, wire_kernel=True)))
+
+
+def _group_rank(out_dir: str) -> None:
+    """One rank: the group engine's decoded gradient and the int8 wire it
+    read, saved by rank 0."""
+    import os
+    from pathlib import Path
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import init_coded_group, remesh_for_m
+    from repro_torch.train.engine import StepEngine
+
+    world = init_coded_group("cuda", init_method=f"file://{os.environ['STORE']}")
+    group = remesh_for_m(world, GROUP_M)
+    model, codec, outcome, params, batch = _group_inputs(group.device)
+    saved = {}
+    for name, kw in _GROUP_RUNS:
+        eng = StepEngine(model, TrainConfig(), codec, backend="spmd", group=group, **kw)
+        eng.wire_out = {}
+        g = eng.gradients(params, batch, outcome)
+        saved[name] = {"decoded": torch.cat([v.reshape(-1) for v in g.values()]).cpu(),
+                       **{k: v.cpu() for k, v in eng.wire_out.items()}}
+    if group.rank == 0:
+        torch.save(saved, Path(out_dir) / "group.pt")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_two_ranks_on_the_card_match_the_emulated_spmd(cuda_device, tmp_path):
+    """Uncompressed: relative L2 <= 1e-5 (only the summation order
+    differs).  The int8 wire: bit-equal wherever the gathered q and
+    scale * a_w equal the emulated path's, elsewhere within one wire step
+    max_w |a_w * scale_w|."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train.engine import StepEngine
+
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "WORLD_SIZE": str(GROUP_M),
+           "LOCAL_WORLD_SIZE": str(GROUP_M), "STORE": str(tmp_path / "store")}
+    procs = [subprocess.Popen([sys.executable, __file__, str(tmp_path)],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(GROUP_M)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    group = torch.load(tmp_path / "group.pt")
+    model, codec, outcome, params, batch = _group_inputs(cuda_device)
+    for name, kw in _GROUP_RUNS:
+        eng = StepEngine(model, TrainConfig(), codec, backend="spmd", device=cuda_device, **kw)
+        eng.wire_out = {}
+        g = eng.gradients(params, batch, outcome)
+        ref = torch.cat([v.reshape(-1) for v in g.values()]).cpu()
+        got = group[name]["decoded"]
+        if name == "plain":
+            rel = float((got.double() - ref.double()).norm() / ref.double().norm())
+            assert rel <= 1e-5, rel
+            continue
+        q, ws = group[name]["q"], group[name]["ws"]
+        same = (q == eng.wire_out["q"].cpu()).all(0)
+        if not torch.equal(ws, eng.wire_out["ws"].cpu()):
+            same = torch.zeros_like(same)
+        assert torch.equal(got[same].view(torch.int32), ref[same].view(torch.int32))
+        off = (got - ref).abs()[~same]
+        assert off.numel() == 0 or float(off.max()) <= float(ws.abs().max())
+
+
+if __name__ == "__main__":
+    _group_rank(sys.argv[1])
