@@ -6,7 +6,8 @@
 Runs from the root of a checkout and drives only ``src/repro_torch`` (it
 never imports ``jax`` or the JAX package):
 
-  1. the card: ``nvidia-smi`` name and power limit, and CUDA's version;
+  1. the card: ``nvidia-smi`` name and power limit, CUDA's version and the
+     card's ``total_memory`` (the dry run's ``CARD_BYTES``);
   2. the build of every kernel source in the checkout (one ``nvcc`` per
      ``csrc/*.cu``, all started together, sm_90a), with ptxas' register and
      spill report for each entry, and the count of HGMMA (wgmma)
@@ -44,9 +45,9 @@ never imports ``jax`` or the JAX package):
      step, the decode once, the error feedback finite and non-zero after
      every step; then mamba2-370m at full width
      and seq 512 (two SSD chunks), the same flags: ``coded_reduce`` m+1
-     times a step and ``ssd_scan`` 48 times a forward pass, (m*n_slots + 1)
-     passes a step; one more mamba2 step under ``torch.profiler`` (device
-     time by kernel group, the device's busy share);
+     times a step and ``ssd_scan`` 48 times a forward pass: m*n_slots
+     gradient passes a step, each run twice (remat recomputes every repeat
+     of the period in the backward), and one loss pass;
   6. a cross-check at full width in f32 with TF32 off: one decoded gradient
      from the spmd backend (through the kernels) against the fused backend
      (autograd), relative L2 error <= 1e-4; and the compressed spmd
@@ -137,7 +138,30 @@ never imports ``jax`` or the JAX package):
      one: relative L2 <= 1e-5 uncompressed; on the int8 wire bit-equal
      wherever the gathered q and scale * a_w equal phase 6's, elsewhere
      within one wire step max_w |a_w * scale_w|;
- 12. a JSON line of the kernels, then the card as the last line.
+ 12. the large-model training levers on full-width models, bf16, random
+     weights from seed 0: (a) llama3.2-1b (1.24 B parameters) through
+     ``train/steps.py``'s ``make_fused_train_step`` at seq 4096, with the
+     dry run's dp_all optimizer policy (bf16 moments, no f32 master): B = 1
+     with remat "none" and "full" (the first loss and grad norm equal to
+     rtol 1e-4, bit-equality printed; remat's peak below none's), B = 4
+     with remat and accumulation 1 and 2 (losses to rtol 1e-3), each run's
+     state bytes, peak and median step, and one more accumulation-1 step
+     under ``torch.profiler`` (device busy share, the largest kernels); (b)
+     the dry run of that B = 4 cell on a one-rank mesh in a subprocess
+     (``repro_torch.launch.dryrun --mesh-shape 1,1 --variant dp_all``): its
+     state bytes within 1 MiB of the bytes params, optimizer state and
+     batch asked the card's allocator for (``requested_bytes``; what it
+     allocated, each block rounded up, is printed beside), its counted
+     FLOPs over the measured step (achieved TFLOP/s, share of 989.4) and
+     t_compute over the step; (c) mamba2-370m's fused step with remat at
+     B = 2, seq 2048: ``ssd_scan`` twice a layer a step (the checkpoint runs
+     the forward again), one more step profiled (device busy share); (d)
+     ``repro_torch.launch.kernel_credit`` on JAX's cells (smollm-360m and
+     mamba2-370m dp_all and llama3.2-1b on 16×16, jamba-1.5-large-398b on
+     2×16×16, train_4k), each a process of its own started at the phase's
+     beginning, one row each of the dry run (state per GPU, fits, the three
+     terms, bottleneck) and of the credit;
+ 13. a JSON line of the kernels, then the card as the last line.
 
 Each main path and serving path is driven with every kernel's launch count
 set to 0 just before it and read just after.  Exits non-zero, printing no result,
@@ -241,6 +265,22 @@ RESUME_ARGS = [*FAULT_BASE, "--steps", str(RESUME_STEPS)]
 # gradients, the event logs), and the time limit of one torchrun of M ranks
 GROUP_DIR = ROOT / "build" / "chip_smoke_group"
 GROUP_TIMEOUT_S = 420
+# phase 12, the large-model training levers: full-width llama3.2-1b at
+# train_4k's sequence length, its step timed over LLAMA_STEPS steps (the
+# first a warm-up), its optimizer state by the dry run's dp_all policy for a
+# replicated model past 5e8 parameters (bf16 moments, no f32 master: with
+# f32 ones, B = 1 without remat runs out of the card's 79.18 GiB); the
+# one-rank dry run of its B = 4 step (a coded global batch of 2 at s = 1: 4
+# sequences); mamba2-370m's fused step with remat; and JAX's kernel_credit
+# cells, dry-run on the CPU, each in a process of its own
+LLAMA, LLAMA_SEQ, LLAMA_PARAMS = "llama3.2-1b", 4096, 1_235_814_400
+LLAMA_STEPS = 4
+MAMBA_REMAT = dict(B=2, S=2048, steps=3)
+DRY_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRY_CELLS = ("smollm-360m:train_4k:single:dp_all", "mamba2-370m:train_4k:single:dp_all",
+             "llama3.2-1b:train_4k:single:baseline", "jamba-1.5-large-398b:train_4k:multi:baseline")
+DRY_TIMEOUT_S = 600
+MIB = 2**20
 # the control-plane trajectory of a faulted run: none of it depends on width
 TRAJECTORY = ("n_used", "exact", "repaired", "skipped_nonfinite", "skipped", "sim_iter_time",
               "decode_residual", "n_stragglers", "exact_fraction")
@@ -608,10 +648,9 @@ def launch_counters() -> dict:
 
 
 def main_path(torch, label: str, args: list[str], expected, on_step=None,
-              n_params_want: int = D_FULL, profile: bool = False, steps: int = STEPS) -> dict:
+              n_params_want: int = D_FULL, steps: int = STEPS) -> dict:
     """Phase 5: one slice command in process, every kernel's count set to 0
-    just before it and read just after, then, with ``profile``, one more
-    step under ``torch.profiler``.  ``expected(steps_taken)`` maps each
+    just before it and read just after.  ``expected(steps_taken)`` maps each
     kernel to the launches the path must make."""
     arch = args[args.index("--arch") + 1]
     from repro_torch.launch.train import main as train_main
@@ -667,12 +706,10 @@ def main_path(torch, label: str, args: list[str], expected, on_step=None,
     steady = statistics.median(out["step_s"][1:] or out["step_s"])
     log(f"main path ({label}) step time: median of steps 1-{steps - 1} {steady:.4f} s "
         f"(step 0 {out['step_s'][0]:.4f} s includes the first batch and warm-up)")
-    breakdown = profile_step(torch, out, label) if profile else {}
     del out
     torch.cuda.empty_cache()
     return dict(launches=launches, steps=steps_taken, peak_gib=peak / 2**30, wall_s=wall,
-                losses=losses,
-                n_params=n_params, step_s=steady, breakdown=breakdown)
+                losses=losses, n_params=n_params, step_s=steady)
 
 
 def check_err_after_step(torch):
@@ -689,70 +726,6 @@ def check_err_after_step(torch):
             raise AssertionError(f"step {step}: error feedback not finite and non-zero")
 
     return hook
-
-
-def profile_step(torch, out, label: str) -> dict:
-    """One more main-path step under ``torch.profiler``: device time by kernel
-    group and the device's busy share of the step's wall time.  Reported,
-    not checked: where the profiler sees no device time it says so."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    trainer, state, data = out["trainer"], out["state"], out["data"]
-    batch = data.batch(STEPS)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups: dict[str, float] = {}
-    counts: dict[str, int] = {}
-    kernels: list[tuple[float, int, str]] = []
-    averages = prof.key_averages()  # one pass over the step's events
-    for ev in averages:
-        # only the device's own events: a CPU op also carries the device
-        # time of the kernels it launched, which would count them twice
-        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
-            continue
-        dev_us = ev.self_device_time_total
-        if not dev_us:
-            continue
-        kernels.append((dev_us / 1e3, int(ev.count), ev.key))
-        name = ev.key.lower()
-        if "coded_reduce" in name:
-            grp = "coded_reduce"
-        elif "ssd_scan" in name:
-            grp = "ssd_scan"
-        elif "encode_coded_max" in name or "encode_quantize" in name:
-            grp = "coded_encode_int8"
-        elif any(t in name for t in ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")):
-            grp = "matmul (cuBLAS)"
-        elif "memcpy" in name or "memset" in name:
-            grp = "memcpy/memset"
-        else:
-            grp = "other kernels"
-        groups[grp] = groups.get(grp, 0.0) + dev_us / 1e3
-        counts[grp] = counts.get(grp, 0) + int(ev.count)
-    busy = sum(groups.values())
-    if busy == 0.0:
-        log(f"profile ({label}): the profiler reported no device time (not measured)")
-        return {}
-    log(f"profile of one {label} main-path step: wall {wall_ms:.1f} ms, device busy "
-        f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle share {1 - busy / wall_ms:.1%}")
-    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {grp}: {ms:.1f} ms device ({ms / busy:.1%} of busy), {counts[grp]} launches")
-    log(f"  {sum(c for _, c, _ in kernels)} device operations in the step; the 8 largest:")
-    for ms, count, key in sorted(kernels, reverse=True)[:8]:
-        log(f"    {ms:8.2f} ms {count:7d}x {key[:100]}")
-    host = sorted(((ev.self_cpu_time_total / 1e3, int(ev.count), ev.key)
-                   for ev in averages if ev.device_type == DeviceType.CPU),
-                  reverse=True)
-    log(f"  host: {sum(ms for ms, _, _ in host):.1f} ms of self CPU time in the step "
-        "(profiler overhead included); the 8 largest ops:")
-    for ms, count, key in host[:8]:
-        log(f"    {ms:8.2f} ms {count:7d}x {key[:100]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, **{f"{g}_ms": v for g, v in groups.items()}}
 
 
 def _attempts(records: list[dict]) -> list[tuple[int, int]]:
@@ -1090,9 +1063,10 @@ def check_ssd_vs_plain(torch) -> dict:
     (G > 1 among them; chunk S/4), f32 and bf16 B/C, within atol 1e-4 /
     rtol 1e-3 as the JAX test; then the full mamba2 layer (chunk 256,
     model-drawn dA) within 1e-3 x max|plain|, finite: at the training shape
-    with bf16 and f32 B/C, and at the serving prefills' shapes (B=4 S=1024
-    of ``generate``, B=1 S=2048 of the engine's longest prompt) with bf16
-    B/C, as the bf16 model gives them.  The decay is exp of a
+    with bf16 and f32 B/C, at phase 12 (c)'s remat'd fused step (B=2
+    S=2048) and at the serving prefills' shapes (B=4 S=1024 of ``generate``,
+    B=1 S=2048 of the engine's longest prompt) with bf16 B/C, as the bf16
+    model gives them.  The decay is exp of a
     difference of cumulative sums, which the two sum in different orders
     (the kernels' own chunks against 256-row ones): where |cumsum| reaches
     hundreds, the f32 spacing (6e-5 at 800) moves the decay by about 1e-4
@@ -1121,6 +1095,7 @@ def check_ssd_vs_plain(torch) -> dict:
     for B_, S_, bc_name, bc in (
         (SSD_FULL["B"], SSD_FULL["S"], "bf16", torch.bfloat16),
         (SSD_FULL["B"], SSD_FULL["S"], "f32", torch.float32),
+        (MAMBA_REMAT["B"], MAMBA_REMAT["S"], "bf16", torch.bfloat16),
         (GEN["B"], GEN["S"], "bf16", torch.bfloat16),
         (1, TRACE["prompt"][1], "bf16", torch.bfloat16),
     ):
@@ -1246,7 +1221,7 @@ def mamba_kernel_check(torch) -> dict:
     grad_rel = rel_l2(gk, gt)
     leaf_rel = {k: rel_l2({k: gk[k]}, {k: gt[k]}) for k in gt if ".mamba." in k}
     ok = (loss_rel <= 1e-4 and grad_rel <= 1e-3 and max(leaf_rel.values()) <= 1e-3
-          and nk == MAMBA_LAYERS and nt == 0)
+          and nk == 2 * MAMBA_LAYERS and nt == 0)  # remat: forward and recompute
     log(f"cross-check {MAMBA} f32 full width, one 2 x {MAMBA_SEQ} micro-batch: weighted loss "
         f"through the kernel {lk:.6f} vs plain {lt:.6f}, relative diff {loss_rel:.3e} (limit "
         f"1e-4); gradients relative L2 {grad_rel:.3e} over all leaves (limit 1e-3), each mamba "
@@ -2270,6 +2245,268 @@ def group_cross_check_rank(out_dir: str) -> int:
     return 0
 
 
+def _fused_run(torch, arch: str, B: int, S: int, steps: int, remat: str | None = None,
+               accum: int = 1, profile: bool = False, small_state: bool = False) -> dict:
+    """Phase 12: ``make_fused_train_step`` on ``arch`` at full width, bf16,
+    random weights from seed 0, a ones-weighted batch of B sequences of S
+    random tokens from seed 1 (int32, as the dry run's stand-ins); the state
+    bytes (params, optimizer state, batch) from ``memory_allocated`` before
+    and after they are placed, the peak, each step's host-clock time (ending
+    in a synchronize) and the kernels' launches over the steps.
+    ``small_state``: the dry run's policy for a replicated model past 5e8
+    parameters (bf16 moments, no f32 master).  ``profile`` runs one more
+    step under ``torch.profiler``."""
+    import gc
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adam import adamw_init
+    from repro_torch.train.steps import make_fused_train_step
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, remat=remat or cfg.remat)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = (adamw_init(params, state_dtype=torch.bfloat16, keep_master=False) if small_state
+           else adamw_init(params))
+    tok = torch.randint(0, cfg.vocab, (B, S), device="cuda", dtype=torch.int32,
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": tok, "labels": tok.clone(),
+             "weight": torch.ones(B, dtype=torch.float32, device="cuda")}
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - base
+    # the bytes asked for, before the allocator rounds each block up (a
+    # large block keeps up to 1 MiB of its segment's tail)
+    state_req = torch.cuda.memory_stats()["requested_bytes.all.current"] - base_req
+    n_params = sum(p.numel() for p in params.values())
+    step_fn = make_fused_train_step(model, TrainConfig(), accum_steps=accum)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, mets = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch, i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mets.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    label = f"{arch} B={B} S={S} remat={cfg.remat} accum={accum}"
+    out = dict(label=label, n_params=n_params, state_bytes=state, state_requested=state_req,
+               base_bytes=base,
+               peak_gib=peak / 2**30, step_s=times, median_s=statistics.median(times[1:]),
+               metrics=mets, launches=launches)
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in mets):
+        raise AssertionError(f"{label}: non-finite loss or grad norm {mets}")
+    log(f"fused step {label}: {n_params} parameters, state {state} B allocated "
+        f"({state_req} B requested), peak {peak / 2**30:.2f} "
+        f"GiB (held before: {base / 2**30:.3f} GiB), steps {[round(t, 4) for t in times]} s, "
+        f"median of 1-{steps - 1} {out['median_s']:.4f} s, first loss {mets[0]['loss']:.6f} "
+        f"grad_norm {mets[0]['grad_norm']:.6f}, launches {launches}")
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(params, opt, batch, steps)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        groups: dict[str, float] = {}
+        top: list[tuple[float, int, str]] = []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
+                continue
+            name = ev.key.lower()
+            grp = ("ssd_scan" if "ssd_scan" in name else "matmul (cuBLAS)" if any(
+                t in name for t in ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas"))
+                else "other kernels")
+            groups[grp] = groups.get(grp, 0.0) + ev.self_device_time_total / 1e3
+            top.append((ev.self_device_time_total / 1e3, int(ev.count), ev.key[:80]))
+        busy = sum(groups.values())
+        top = sorted(top, reverse=True)[:6]
+        out["profile"] = {"wall_ms": wall_ms, "busy_ms": busy, **groups, "largest": top}
+        log(f"profile of one {label} step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms"
+            + (f" (idle share {1 - busy / wall_ms:.1%}); " if busy else " (not measured); ")
+            + ", ".join(f"{g} {v:.1f} ms" for g, v in groups.items()))
+        for ms, count, key in top:
+            log(f"    {ms:9.2f} ms {count:6d}x {key}")
+    del params, opt, batch, step_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dry_subprocess(label: str, args: list[str]) -> str:
+    """One dry-run tool in a process of its own (a fake process group is
+    per process); its output logged, any failure the phase's."""
+    import os
+
+    cmd = [sys.executable, "-m", *args]
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=DRY_TIMEOUT_S)
+    if proc.returncode != 0:
+        for line in (proc.stdout + proc.stderr).splitlines()[-40:]:
+            log("  ! " + line[:300])
+        raise AssertionError(f"{label}: {' '.join(args)} exited {proc.returncode}")
+    log(f"{label}: {' '.join(args)} done in {time.perf_counter() - t0:.1f} s")
+    return proc.stdout
+
+
+def large_model_path(torch) -> dict:
+    """Phase 12: (a) llama3.2-1b's fused step at full width, seq 4096: B = 1
+    with remat "none" and "full" (the same first loss and grad norm; both
+    peaks, remat's below), B = 4 with remat and accumulation 1 and 2 (every
+    step's loss to rtol 1e-3, the first grad norm to 1e-4, the later ones
+    to 1e-3); (b) the dry run of the B = 4 cell on a one-rank
+    mesh in a subprocess: its state bytes within 1 MiB of what the state
+    asked the card's allocator for, its counted FLOPs over the measured step as achieved
+    TFLOP/s and share of 989.4, t_compute over the step; (c) mamba2-370m's
+    fused step with remat, ``ssd_scan`` twice a layer a step (the checkpoint
+    recomputes the forward); (d) ``kernel_credit`` on JAX's cells, four
+    processes at once, one row each of the dry run and of the credit."""
+    import shutil
+
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    DRY_DIR.mkdir(parents=True)
+    # (d) first, in the background: the dry runs need the CPU, not the card
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    credit_procs = {
+        cell: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.kernel_credit", "--cells", cell, "--out",
+             str(DRY_DIR / f"{cell.replace(':', '__')}.json")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in DRY_CELLS}
+    t_credit = time.perf_counter()
+    out: dict = {}
+    try:
+        none1 = _fused_run(torch, LLAMA, 1, LLAMA_SEQ, LLAMA_STEPS, remat="none",
+                           small_state=True)
+        full1 = _fused_run(torch, LLAMA, 1, LLAMA_SEQ, LLAMA_STEPS, remat="full",
+                           small_state=True)
+        for r in (none1, full1):
+            if r["n_params"] != LLAMA_PARAMS:
+                raise AssertionError(f"{r['label']}: {r['n_params']} parameters")
+        a, b = none1["metrics"][0], full1["metrics"][0]
+        bit_equal = a == b
+        for key in ("loss", "grad_norm"):
+            if not math.isclose(a[key], b[key], rel_tol=1e-4):
+                raise AssertionError(f"remat none vs full at B=1: {key} {a[key]} vs {b[key]}")
+        if not full1["peak_gib"] < none1["peak_gib"]:
+            raise AssertionError(f"remat's peak {full1['peak_gib']:.2f} GiB is not below "
+                                 f"none's {none1['peak_gib']:.2f}")
+        log(f"phase 12 (a) B=1: remat none vs full: loss {a['loss']!r} / {b['loss']!r}, grad "
+            f"norm {a['grad_norm']!r} / {b['grad_norm']!r} (bit-equal: {bit_equal}); peak "
+            f"{none1['peak_gib']:.2f} / {full1['peak_gib']:.2f} GiB; median step "
+            f"{none1['median_s']:.4f} / {full1['median_s']:.4f} s")
+        acc1 = _fused_run(torch, LLAMA, 4, LLAMA_SEQ, LLAMA_STEPS, accum=1, small_state=True,
+                          profile=True)
+        acc2 = _fused_run(torch, LLAMA, 4, LLAMA_SEQ, LLAMA_STEPS, accum=2, small_state=True)
+        # step 0's loss is taken before any update, so only its grad norm
+        # reads the accumulation (bf16 grads of the whole batch against f32
+        # sums of two chunks': 7.4e-6 apart on an H100); lr(0) is
+        # 0, so steps 2 and 3 are the first taken after accumulated updates
+        for i, (m1, m2) in enumerate(zip(acc1["metrics"], acc2["metrics"])):
+            for key, rtol in (("loss", 1e-3), ("grad_norm", 1e-4 if i == 0 else 1e-3)):
+                if not math.isclose(m1[key], m2[key], rel_tol=rtol):
+                    raise AssertionError(f"B=4 accumulation 1 vs 2, step {i}: {key} "
+                                         f"{m1[key]} vs {m2[key]} (rtol {rtol})")
+        log(f"phase 12 (a) B=4 remat: accum 1 vs 2 over {LLAMA_STEPS} steps: losses "
+            f"{[m['loss'] for m in acc1['metrics']]} / {[m['loss'] for m in acc2['metrics']]} "
+            f"(rtol 1e-3), grad norms {[m['grad_norm'] for m in acc1['metrics']]} / "
+            f"{[m['grad_norm'] for m in acc2['metrics']]} (rtol 1e-4 at step 0, 1e-3 after); "
+            f"peak {acc1['peak_gib']:.2f} / {acc2['peak_gib']:.2f} GiB; median step "
+            f"{acc1['median_s']:.4f} / {acc2['median_s']:.4f} s")
+        out["a"] = {"none_B1": none1, "full_B1": full1, "accum1_B4": acc1, "accum2_B4": acc2,
+                    "remat_bit_equal": bit_equal}
+
+        # (b) the same B = 4 cell, dry-run on a one-rank mesh
+        _dry_subprocess("phase 12 (b)", [
+            "repro_torch.launch.dryrun", "--arch", LLAMA, "--shape", "train_4k",
+            "--mesh-shape", "1,1", "--global-batch", "2", "--variant", "dp_all",
+            "--out", str(DRY_DIR / "one_rank")])
+        row = json.loads(next((DRY_DIR / "one_rank").glob("*.json")).read_text())
+        if row["coded_tokens"] != 4 * LLAMA_SEQ:
+            raise AssertionError(f"dry run's batch is {row['coded_tokens']} tokens, not 4 x "
+                                 f"{LLAMA_SEQ}")
+        # held to the bytes the step's state asked the allocator for; what
+        # it allocated is printed beside (each large block rounded up)
+        diff = row["state_bytes_per_chip"] - acc1["state_requested"]
+        if abs(diff) > MIB:
+            raise AssertionError(f"state bytes predicted {row['state_bytes_per_chip']} vs "
+                                 f"requested {acc1['state_requested']}: {diff} B apart")
+        step = acc1["median_s"]
+        achieved = row["flops_per_chip"] / step
+        out["b"] = {"state_predicted": row["state_bytes_per_chip"],
+                    "state_requested": acc1["state_requested"],
+                    "state_allocated": acc1["state_bytes"], "diff_bytes": diff,
+                    "flops": row["flops_per_chip"], "mm_flops_by_dtype": row["mm_flops_by_dtype"],
+                    "bytes": row["bytes_per_chip"], "t_compute_s": row["t_compute_s"],
+                    "t_memory_s": row["t_memory_s"], "bottleneck": row["bottleneck"],
+                    "step_s": step, "achieved_tflops": achieved / 1e12,
+                    "share_of_peak": achieved / BF16_FLOPS,
+                    "t_compute_over_step": row["t_compute_s"] / step,
+                    "t_memory_over_step": row["t_memory_s"] / step}
+        log(f"phase 12 (b) dry run of {LLAMA} B=4 S={LLAMA_SEQ} on one rank: state "
+            f"{row['state_bytes_per_chip']} B predicted, {acc1['state_requested']} B requested "
+            f"({diff:+d} B), {acc1['state_bytes']} B allocated; {row['flops_per_chip']:.4e} FLOPs (matmuls by dtype "
+            f"{row['mm_flops_by_dtype']}), {row['bytes_per_chip']:.4e} B; measured step "
+            f"{step:.4f} s: {achieved / 1e12:.1f} TFLOP/s achieved, "
+            f"{achieved / BF16_FLOPS:.1%} of 989.4; t_compute {row['t_compute_s']:.4f} s "
+            f"({row['t_compute_s'] / step:.1%} of the step), t_memory {row['t_memory_s']:.4f} s, "
+            f"bottleneck {row['bottleneck']}")
+
+        # (c) mamba2 through the fused step with remat: the SSD kernel twice
+        # a layer a step (forward, and the checkpoint's recompute)
+        mr = _fused_run(torch, MAMBA, MAMBA_REMAT["B"], MAMBA_REMAT["S"], MAMBA_REMAT["steps"],
+                        profile=True)
+        want = MAMBA_REMAT["steps"] * 2 * MAMBA_LAYERS
+        if mr["launches"]["ssd_scan"] != want:
+            raise AssertionError(f"mamba2 remat: ssd_scan {mr['launches']['ssd_scan']} launches, "
+                                 f"expected {want}")
+        log(f"phase 12 (c) mamba2 fused step with remat: ssd_scan {want} launches in "
+            f"{MAMBA_REMAT['steps']} steps (2 x {MAMBA_LAYERS} a step), peak "
+            f"{mr['peak_gib']:.2f} GiB, median step {mr['median_s']:.4f} s")
+        out["c"] = mr
+    finally:
+        # (d) the dry-run rows and the kernel credit of JAX's cells
+        logs = {cell: p.communicate(timeout=DRY_TIMEOUT_S)[0] for cell, p in credit_procs.items()}
+    log(f"phase 12 (d): kernel_credit on {len(DRY_CELLS)} cells, in parallel, "
+        f"{time.perf_counter() - t_credit:.1f} s")
+    rows = {}
+    for cell, p in credit_procs.items():
+        if p.returncode != 0:
+            for line in logs[cell].splitlines()[-40:]:
+                log("  ! " + line[:300])
+            raise AssertionError(f"phase 12 (d): kernel_credit {cell} exited {p.returncode}")
+        rec = json.loads((DRY_DIR / f"{cell.replace(':', '__')}.json").read_text())[0]
+        r = rec["dryrun_row"]
+        rows[cell] = {"state_bytes_per_chip": r["state_bytes_per_chip"],
+                      "fits_h100_state": r["fits_h100_state"], "bottleneck": r["bottleneck"],
+                      "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+                      "t_collective_s": r["t_collective_s"], "coll": r["coll_breakdown"],
+                      "useful_ratio": r["useful_ratio"],
+                      "score_share": rec["score_share"],
+                      "t_memory_kernelized_s": rec["t_memory_kernelized_s"],
+                      "step_time_kernelized_s": rec["step_time_kernelized_s"],
+                      "mfu_kernelized": rec["mfu_kernelized"]}
+        log(f"phase 12 (d) {cell}: " + json.dumps(rows[cell]))
+    out["d"] = rows
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc" / "coded_reduce.cu").is_file():
         print("chip_smoke: run from the root of a checkout (src/repro_torch missing)",
@@ -2288,7 +2525,8 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.device_count()} device(s)")
+        f"{torch.cuda.device_count()} device(s), total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B (the dry run's CARD_BYTES)")
     print(card, flush=True)  # as nvidia-smi gives it, on a line of its own
 
     # 2. the build: one nvcc per source, all started together
@@ -2335,9 +2573,10 @@ def main() -> int:
     wire_launches = lambda n: {  # noqa: E731
         "coded_reduce": n, "coded_encode_int8": n * M, "coded_decode_int8": n, "ssd_scan": 0,
         "flash_attention": 0}
-    # a step's forward passes: one per worker slot (m * n_slots gradients)
-    # and one more for the step's loss at the decoded weights
-    passes = M * n_slots + 1
+    # a step's forward passes: two per worker slot (m * n_slots gradients,
+    # each forward run again by remat's recompute) and one more for the
+    # step's loss at the decoded weights (no grad: no remat)
+    passes = 2 * M * n_slots + 1
     mamba_launches = lambda n: {  # noqa: E731
         "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
         "ssd_scan": n * passes * MAMBA_LAYERS, "flash_attention": 0}
@@ -2350,11 +2589,12 @@ def main() -> int:
     GROUP_DIR.mkdir(parents=True)
     xc = cross_check(torch, ARCH, seq_len=64, part_mb=2, wire=True, save=GROUP_DIR)
     log(f"mamba2 main path: {passes} forward passes a step (m * n_slots = {M * n_slots} "
-        f"gradients + 1 loss), so ssd_scan {passes * MAMBA_LAYERS} launches a step")
-    # one profiled step, mamba2's: the smollm paths' profiles (PERF.md § 5)
-    # cost 200 s of the time limit, and phase 9's spans split their steps
+        f"gradients, each recomputed under remat, + 1 loss), so ssd_scan "
+        f"{passes * MAMBA_LAYERS} launches a step")
+    # unprofiled: the profiled mamba2 step is phase 12 (c)'s fused step (a
+    # profiled trainer step here cost 163 s of the time limit)
     mamba_run = main_path(torch, "mamba2 spmd", MAMBA_ARGS, mamba_launches,
-                          n_params_want=D_MAMBA, profile=True)
+                          n_params_want=D_MAMBA)
     # seq 512 in micro-batches of 1: two chunks, so the carried state runs
     mxc = {**cross_check(torch, MAMBA, seq_len=MAMBA_SEQ, part_mb=1, wire=False),
            **mamba_kernel_check(torch)}
@@ -2389,7 +2629,10 @@ def main() -> int:
     # 11. the spmd backend across processes: M ranks on the card over gloo
     group = group_path(torch, faults)
 
-    # 12. the kernels line, then the card
+    # 12. the large-model training levers: remat, accumulation, the dry run
+    large = large_model_path(torch)
+
+    # 13. the kernels line, then the card
     kernels = [{
         "name": "coded_reduce",
         "route": "cuda",
@@ -2503,7 +2746,7 @@ def main() -> int:
         f"peak {wire_run['peak_gib']:.2f} GiB, losses {wire_run['losses']}; cross-check {xc}")
     log(f"summary: mamba2 spmd step {mamba_run['step_s']:.4f} s (median), peak "
         f"{mamba_run['peak_gib']:.2f} GiB, losses {mamba_run['losses']}, launches "
-        f"{mamba_run['launches']}; cross-check {mxc}; profile {mamba_run['breakdown']}")
+        f"{mamba_run['launches']}; cross-check {mxc}")
     for arch in (ARCH, MAMBA):
         log(f"summary: serve {arch} {json.dumps(serve[arch], default=str)}")
     log(f"summary: fault path {json.dumps(faults, default=str)}")
@@ -2513,6 +2756,8 @@ def main() -> int:
         f"{hubert['peak_gib']:.2f} GiB, losses {hubert['losses']}, launches {hubert['launches']}")
     log(f"summary: family f32 checks {json.dumps(fam_f32, default=str)}")
     log(f"summary: group {json.dumps(group, default=str)}")
+    log(f"summary: large-model levers {json.dumps(large, default=str)}")
+    log(f"summary: chip_smoke took {time.perf_counter() - _T0:.1f} s to its summary")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -22,6 +22,14 @@ refuses a 2-D ``(m, n)`` one.
 
 Every function that builds a group (:func:`remesh_for_m`) must be called by
 every rank of the world, members or not, in the same order.
+
+The production mesh of a large-model run (:func:`make_production_mesh`,
+:func:`data_axes`, :func:`coded_workers`) is a named ``DeviceMesh`` over
+the whole world: 16×16 ``("data", "model")`` or 2×16×16 ``("pod", "data",
+"model")``, 256 or 512 ranks, the JAX package's shapes.  ``model`` carries
+tensor parallelism, ``data`` (and ``pod``) the coded workers and FSDP.
+The dry run builds it over a fake process group of that world size
+(``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +62,9 @@ __all__ = [
     "gather_to_first",
     "scatter_from_first",
     "barrier",
+    "make_production_mesh",
+    "data_axes",
+    "coded_workers",
 ]
 
 _log = logging.getLogger(__name__)
@@ -269,3 +280,27 @@ def scatter_from_first(rows: torch.Tensor | None, out: torch.Tensor, group: Code
 def barrier() -> None:
     """Wait for every rank of the world."""
     dist.barrier()
+
+
+def make_production_mesh(multi_pod: bool = False, shape: tuple[int, ...] | None = None):
+    """16×16 ``("data", "model")`` (256 ranks) or 2×16×16 ``("pod", "data",
+    "model")`` (512 ranks) over the default process group, whose world size
+    must be the mesh's.  ``shape`` replaces the extents (a small mesh for
+    tests or one card), keeping the axis names.  The mesh's device type is
+    the CPU: the gloo ranks of the tests and the dry run's fake world."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape = tuple(shape) if shape is not None else ((2, 16, 16) if multi_pod else (16, 16))
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The coded-worker axes of a production mesh."""
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
+
+
+def coded_workers(mesh) -> int:
+    return int(np.prod([mesh.size(mesh.mesh_dim_names.index(a)) for a in data_axes(mesh)]))

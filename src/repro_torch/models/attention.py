@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
+from repro_torch.models.sharding import shard_batch, split_dim
 
 __all__ = ["NEG_INF", "attention_decode", "attention_forward"]
 
@@ -39,17 +40,18 @@ Params = dict[str, torch.Tensor]
 
 
 def _project_qkv(params, x, n_heads, n_kv, head_dim):
-    B, S, _ = x.shape
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    return (
-        q.reshape(B, S, n_heads, head_dim),
-        k.reshape(B, S, n_kv, head_dim),
-        v.reshape(B, S, n_kv, head_dim),
-    )
+    # anchor the batch dim (a no-op unless sharding axes are installed).
+    # JAX anchors after the head split and rope; here it comes before the
+    # split, which a head count the model axis does not divide (8 KV heads
+    # over 16) cannot take on a DTensor sharded over heads
+    q, k, v = shard_batch(q), shard_batch(k), shard_batch(v)
+    return (split_dim(q, -1, (n_heads, head_dim)), split_dim(k, -1, (n_kv, head_dim)),
+            split_dim(v, -1, (n_kv, head_dim)))
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -103,7 +105,7 @@ def attention_forward(
                                 causal=causal, window=window, impl=impl)
         out = o.reshape(B, S, n_heads * head_dim)
     else:
-        qh = q.reshape(B, S, n_kv, G, head_dim) * (head_dim**-0.5)
+        qh = split_dim(q, 2, (n_kv, G)) * (head_dim**-0.5)
         s = _gqa_scores(qh, k)  # (B, K, G, S, S)
         kpos = pos[0]  # positions are identical across the batch
         mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
@@ -113,7 +115,7 @@ def attention_forward(
             mask &= kpos[None, :] > kpos[:, None] - window
         if causal or window is not None:
             s = torch.where(mask, s, _neg_inf(s))
-        out = _gqa_out(torch.softmax(s, dim=-1), v)
+        out = shard_batch(_gqa_out(torch.softmax(s, dim=-1), v))
     out = out @ params["wo"]
     cache = None
     if return_cache:
@@ -190,7 +192,7 @@ def attention_decode(
         kc.index_copy_(1, slot.reshape(1), k)
         vc.index_copy_(1, slot.reshape(1), v)
 
-    qh = q.reshape(B, 1, n_kv, G, head_dim) * (head_dim**-0.5)
+    qh = split_dim(q, 2, (n_kv, G)) * (head_dim**-0.5)
     s = _gqa_scores(qh, kc)  # (B, K, G, 1, S_c)
     idx = torch.arange(S_c, device=x.device)
     pcol = pos[:, None] if pos.dim() else pos

@@ -19,8 +19,18 @@ summed over layers, and ``seq_losses`` adds ``aux_coef`` times it to every
 sequence.  Frontends are the JAX package's stubs: audio takes ``frames``
 (B, S, d) and has no ``embed`` leaf; vision prepends ``patches`` (B,
 n_patches, d) to the token embeddings, and its labels cover the text span.
-Activation checkpointing (``remat="full"``) is not applied (ROADMAP
-Queue 1): at the launcher's sequence lengths the activations fit.
+Activation checkpointing: with ``remat="full"`` (every full config; the
+reduced ones set ``"none"``) a training forward with grad enabled runs each
+repeat of the period under ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of JAX's ``jax.checkpoint`` of its scan body: only the
+repeat's input is kept, and its layers run again in the backward.  Serving
+(prefill, decode) is never checkpointed.
+
+Sharding: :meth:`LM.param_specs` and :meth:`LM.fsdp_specs` give each
+parameter's layout as a tuple of mesh-axis names a dim (JAX's
+``PartitionSpec``), which ``models/sharding.py`` turns into DTensor
+placements; the forward then runs on DTensor parameters and batches, with
+``shard_batch`` anchoring the batch dim where the JAX model does.
 
 Serving: :meth:`LM.prefill` (the flash-attention kernel and the SSD kernel
 forward-only on the card), :meth:`LM.decode_step` and the slot cache
@@ -40,15 +50,19 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention_decode, attention_forward
 from repro_torch.models.layers import dense_init, embed_init, mlp, rms_norm
 from repro_torch.models.moe import init_moe, moe_apply, moe_apply_dense
+from repro_torch.models.sharding import (embedding, gather_data_shards, reduce_partial,
+                                         shard_batch, unshard_dim)
 from repro_torch.models.ssm import init_mamba, mamba_decode, mamba_forward
 
 Params = dict[str, torch.Tensor]
 Cache = dict[str, torch.Tensor]
+Spec = tuple  # one entry a dim: a mesh-axis name, a tuple of them, or None
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -265,9 +279,13 @@ class LM:
                     sub("mamba."), h, chunk=cfg.ssm_chunk, impl=self.ssd_impl,
                     return_cache=(mode == "prefill"), **kw,
                 )
-        x = x + out
+        # a row-parallel output (wo, out_proj, w_down over 'model') is a
+        # pending sum: reduced here, as Megatron's all-reduce, so the norm
+        # and the next projections see whole activations (no-op unsharded)
+        x = x + reduce_partial(out)
         aux = None
         if spec.mlp != "none":
+            x = shard_batch(x)  # pins the MLP input's gradient (see sharding.py)
             h = rms_norm(x, bp["mlp_norm.scale"], cfg.norm_eps)
             if spec.mlp == "moe":
                 moe_fn = moe_apply_dense if cfg.moe_dispatch == "dense" else moe_apply
@@ -276,16 +294,17 @@ class LM:
                 aux = a.mean()
             else:
                 y = mlp(sub("mlp."), h, cfg.act)
-            x = x + y
+            x = x + reduce_partial(y)
         return x, aux, new_cache
 
     def _layers(self, params: Params) -> list[dict[str, torch.Tensor]]:
         """Per layer of the period, its stacked leaves under their names
-        below ``blocks.j.``."""
+        below ``blocks.j.`` (a stacked dim sharded by FSDP gathered whole)."""
         out = []
         for j in range(self.period):
             prefix = f"blocks.{j}."
-            out.append({n[len(prefix):]: v for n, v in params.items() if n.startswith(prefix)})
+            out.append({n[len(prefix):]: unshard_dim(v) for n, v in params.items()
+                        if n.startswith(prefix)})
         return out
 
     def _embed(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -294,7 +313,7 @@ class LM:
         cfg = self.cfg
         if cfg.frontend == "audio":
             return batch["frames"].to(self.dtype)
-        tok = F.embedding(batch["tokens"].long(), params["embed"])
+        tok = reduce_partial(embedding(batch["tokens"].long(), params["embed"]))
         if cfg.frontend == "vision":
             return torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
         return tok
@@ -309,19 +328,34 @@ class LM:
         """(logits (B, S_total, V) in the parameter dtype, the MoE
         load-balance loss summed over layers, f32 0-d)."""
         cfg = self.cfg
+        params = {k: gather_data_shards(v) for k, v in params.items()}  # FSDP's gather
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # one unbind per stacked leaf: its backward stacks the per-layer
         # grads once, instead of a full-size scatter per layer
         blocks = [{k: v.unbind(0) for k, v in layer.items()} for layer in self._layers(params)]
-        for r in range(self.n_rep):
+
+        def repeat(x, aux, r):
             for j, layers in enumerate(blocks):
+                x = shard_batch(x)  # re-anchor the batch sharding each block
                 x, a, _ = self._apply_block(
                     self.plan[j], {k: v[r] for k, v in layers.items()}, x, positions
                 )
                 if a is not None:
                     aux = aux + a
+            return x, aux
+
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        for r in range(self.n_rep):
+            if remat:
+                # the model draws no random numbers: no RNG state to keep,
+                # and keeping the card's costs a host-device round trip
+                x, aux = checkpoint(repeat, x, aux, r, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = repeat(x, aux, r)
+        x = shard_batch(x)  # pins the head's input gradient (see sharding.py)
         x = rms_norm(x, params["final_norm.scale"], cfg.norm_eps)
         return self._logits(params, x), aux
 
@@ -339,7 +373,11 @@ class LM:
         valid = labels >= 0
         lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
         logp = torch.log_softmax(logits.float(), dim=-1)
-        ll = logp.gather(-1, lab[..., None])[..., 0]
+        # logp at each label: nll_loss picks the same values as a gather,
+        # and its backward is one op that DTensor shards by the batch rows
+        # (a gather's composite backward makes a zero tensor of the whole
+        # batch on every rank)
+        ll = -F.nll_loss(logp.flatten(0, -2), lab.flatten(), reduction="none").view(lab.shape)
         ce = -(ll * valid).sum(-1) / valid.sum(-1).clamp(min=1)
         return ce + cfg.aux_coef * aux
 
@@ -360,6 +398,7 @@ class LM:
         as a 0-d int32 tensor.  A sliding-window layer's cache is its ring
         of ``window`` rows whatever ``cache_len`` is."""
         cfg = self.cfg
+        params = {k: gather_data_shards(v) for k, v in params.items()}
         x = self._embed(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -392,7 +431,8 @@ class LM:
         position).  The layer leaves are updated IN PLACE and returned in a
         new dict with ``pos + 1``, the values the JAX function returns."""
         cfg = self.cfg
-        x = F.embedding(tokens.long(), params["embed"])
+        params = {k: gather_data_shards(v) for k, v in params.items()}
+        x = reduce_partial(embedding(tokens.long(), params["embed"]))
         pos = cache["pos"]
         layers = self._layers(params)
         for r in range(self.n_rep):
@@ -417,8 +457,9 @@ class LM:
         per-slot ``pos`` vector, on the parameters' device.  The shapes are
         built here (the KV cache of an attention layer, a ring of ``window``
         rows with a sliding window, the SSM state and
-        the conv inputs of a mamba layer), not traced from a prefill."""
-        cfg, n = self.cfg, self.n_rep
+        the conv inputs of a mamba layer; :meth:`cache_shapes`), not traced
+        from a prefill."""
+        cfg = self.cfg
         if cfg.encoder_only:
             raise ValueError(f"{cfg.name} is encoder-only; no decode cache")
         if cfg.frontend == "vision" and cache_len < cfg.n_patches + 1:
@@ -426,25 +467,29 @@ class LM:
             raise ValueError(f"cache_len {cache_len} cannot hold a vision prompt's "
                              f"{cfg.n_patches} patch positions and a token")
         dev = params["embed"].device
+        cache: Cache = {k: torch.zeros(shape, dtype=dt, device=dev)
+                        for k, (shape, dt) in self.cache_shapes(n_slots, cache_len).items()}
+        cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        return cache
 
-        def zeros(*shape, dtype=self.dtype):
-            return torch.zeros((n, n_slots, *shape), dtype=dtype, device=dev)
-
-        cache: Cache = {}
+    def cache_shapes(self, batch: int, cache_len: int) -> dict[str, tuple[tuple, torch.dtype]]:
+        """Each layer leaf of a decode cache for ``batch`` rows: its key,
+        shape ``(n_rep, batch, ...)`` and dtype (``"pos"`` not included)."""
+        cfg, n = self.cfg, self.n_rep
+        out: dict[str, tuple[tuple, torch.dtype]] = {}
         for j, spec in enumerate(self.plan[: self.period]):
             if spec.mixer == "attn":
                 rows = cfg.window if cfg.window is not None else cache_len
                 for name in ("k", "v"):
-                    cache[f"layers.{j}.{name}"] = zeros(rows, cfg.n_kv_heads,
-                                                        cfg.resolved_head_dim)
+                    out[f"layers.{j}.{name}"] = (
+                        (n, batch, rows, cfg.n_kv_heads, cfg.resolved_head_dim), self.dtype)
             else:
                 conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
                 P = cfg.ssm_d_inner // cfg.ssm_heads
-                cache[f"layers.{j}.conv"] = zeros(cfg.conv_kernel - 1, conv_ch)
-                cache[f"layers.{j}.h"] = zeros(cfg.ssm_heads, P, cfg.ssm_state,
-                                               dtype=torch.float32)
-        cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        return cache
+                out[f"layers.{j}.conv"] = ((n, batch, cfg.conv_kernel - 1, conv_ch), self.dtype)
+                out[f"layers.{j}.h"] = ((n, batch, cfg.ssm_heads, P, cfg.ssm_state),
+                                        torch.float32)
+        return out
 
     @staticmethod
     @torch.inference_mode()
@@ -470,6 +515,84 @@ class LM:
                 big[:, slot].zero_()
         batch_cache["pos"][slot] = 0
         return batch_cache
+
+
+    # -- sharding ------------------------------------------------------------
+
+    def _block_specs(self, spec: LayerSpec, tp: str, moe_on_experts: bool) -> dict[str, Spec]:
+        """One layer of the period's specs under their names below
+        ``blocks.j.``; the leading stacked-layer dim is never sharded."""
+        cfg = self.cfg
+
+        def n(*dims):
+            return (None, *dims)
+
+        blk = {"mixer_norm.scale": n(None)}
+        if spec.mixer == "attn":
+            blk |= {"attn.wq": n(None, tp), "attn.wk": n(None, tp), "attn.wv": n(None, tp),
+                    "attn.wo": n(tp, None)}
+            if cfg.qkv_bias:
+                blk |= {"attn.bq": n(tp), "attn.bk": n(tp), "attn.bv": n(tp)}
+        else:
+            blk |= {f"mamba.{k}": v for k, v in {
+                "in_proj": n(None, tp), "conv_w": n(None, tp), "conv_b": n(tp), "A_log": n(tp),
+                "D": n(tp), "dt_bias": n(tp), "norm": n(tp), "out_proj": n(tp, None)}.items()}
+        if spec.mlp == "dense":
+            blk |= {"mlp_norm.scale": n(None), "mlp.w_gate": n(None, tp), "mlp.w_up": n(None, tp),
+                    "mlp.w_down": n(tp, None)}
+        elif spec.mlp == "moe":
+            blk |= {"mlp_norm.scale": n(None), "moe.router": n(None, None)}
+            if moe_on_experts:
+                blk |= {f"moe.{w}": n(tp, None, None) for w in ("w_gate", "w_up", "w_down")}
+            else:
+                blk |= {"moe.w_gate": n(None, None, tp), "moe.w_up": n(None, None, tp),
+                        "moe.w_down": n(None, tp, None)}
+        return blk
+
+    def param_specs(self, tp_axis: str = "model", tp_size: int = 16) -> dict[str, Spec]:
+        """Tensor-parallel layout: for each dotted key of the params, the
+        mesh axis of each dim (JAX's ``LM.param_specs``).  Column-parallel
+        q/k/v, gate and up projections and mamba's inputs, row-parallel
+        outputs; MoE weights over experts when ``n_experts % tp_size == 0``,
+        else over their hidden width; the vocab dim of the embedding and
+        head only when ``vocab % tp_size == 0``, else their d_model dim."""
+        cfg = self.cfg
+        moe_on_experts = cfg.n_experts > 0 and cfg.n_experts % tp_size == 0
+        vocab_ok = cfg.vocab % tp_size == 0
+        specs: dict[str, Spec] = {}
+        for j in range(self.period):
+            for k, v in self._block_specs(self.plan[j], tp_axis, moe_on_experts).items():
+                specs[f"blocks.{j}.{k}"] = v
+        if cfg.frontend != "audio":
+            specs["embed"] = (tp_axis, None) if vocab_ok else (None, tp_axis)
+        specs["final_norm.scale"] = (None,)
+        if not cfg.tie_embeddings or cfg.frontend == "audio":
+            specs["lm_head"] = (None, tp_axis) if vocab_ok else (tp_axis, None)
+        return {k: specs[k] for k in sorted(specs, key=self._key_order)}
+
+    def _key_order(self, key: str):
+        """Sort key of a dotted parameter key in JAX's flatten order."""
+        return [(0, int(p), "") if p.isdigit() else (1, 0, p) for p in key.split(".")]
+
+    @staticmethod
+    def fsdp_specs(
+        param_shapes: dict[str, tuple[int, ...]], base_specs: dict[str, Spec],
+        fsdp_axis: str = "data", fsdp_size: int = 16,
+    ) -> dict[str, Spec]:
+        """ZeRO-style extension (JAX's ``LM.fsdp_specs``): ``fsdp_axis`` on
+        the first unsharded dim of each leaf that ``fsdp_size`` divides (the
+        stacked-layer dim included), so per-rank bytes scale with 1/(tp·dp)
+        instead of 1/tp.  ``param_shapes`` maps each key to its shape."""
+        out = {}
+        for key, spec in base_specs.items():
+            shape = tuple(param_shapes[key])
+            dims = list(spec) + [None] * (len(shape) - len(spec))
+            for i, d in enumerate(shape):
+                if dims[i] is None and d % fsdp_size == 0 and d >= fsdp_size:
+                    dims[i] = fsdp_axis
+                    break
+            out[key] = tuple(dims)
+        return out
 
 
 def cache_from_numpy(tree, device: torch.device | str = "cuda") -> Cache:

@@ -21,7 +21,7 @@ only in how the expert FFN rounds:
   them.
 
 Here both dispatch by gather and scatter into ``(E, C)`` expert buffers
-(a dropped pair goes to one spare row, discarded), which computes the same
+(a dropped pair goes to its batch row's spare slot, discarded), which computes the same
 numbers as the one-hot einsums: every buffer row has one source token.
 Both take a batch of rows (B, T, d) and route each row on its own, as the
 JAX LM's ``vmap`` of the (T, d) functions over rows does: the capacity
@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import activation, dense_init
+from repro_torch.models.sharding import reduce_partial
 
 __all__ = ["init_moe", "moe_apply", "moe_apply_dense", "moe_capacity"]
 
@@ -66,8 +67,10 @@ def moe_capacity(n_tokens: int, n_experts: int, top_k: int, capacity_factor: flo
 
 def _route(params: Params, x: torch.Tensor, top_k: int, capacity_factor: float):
     """x (B, T, d) -> (gates (B, T, k) f32, expert ids (B, T, k), buffer
-    rows (B, T*k) into the flat (B*E*C + 1) buffer with dropped pairs on
-    the spare last row, aux (B,), E, C)."""
+    rows (B, T*k) into each batch row's (E*C + 1) buffer with dropped pairs
+    on its spare last row, aux (B,), E, C).  Every index is local to its
+    batch row, so a batch sharded over ranks (DTensor) routes shard by
+    shard."""
     B, T, _ = x.shape
     E = params["router"].shape[1]
     C = moe_capacity(T, E, top_k, capacity_factor)
@@ -80,8 +83,7 @@ def _route(params: Params, x: torch.Tensor, top_k: int, capacity_factor: float):
     flat = ids.reshape(B, T * top_k)  # (t, k) priority order
     onehot = F.one_hot(flat, E)
     pos = (onehot.cumsum(1) - onehot).gather(-1, flat[..., None])[..., 0]
-    row = torch.arange(B, device=x.device)[:, None] * (E * C) + flat * C + pos
-    rows = torch.where(pos < C, row, torch.full_like(row, B * E * C))
+    rows = torch.where(pos < C, flat * C + pos, torch.full_like(flat, E * C))
     return gates, ids, rows, aux, E, C
 
 
@@ -89,17 +91,61 @@ def _dispatch(x: torch.Tensor, rows: torch.Tensor, top_k: int, E: int, C: int) -
     """Each kept (t, k) pair's token into its buffer row: (B, E, C, d) in
     x's dtype, zero where an expert has fewer than C tokens."""
     B, T, d = x.shape
-    src = x.repeat_interleave(top_k, dim=1).reshape(B * T * top_k, d)
-    buf = x.new_zeros((B * E * C + 1, d)).index_add(0, rows.reshape(-1), src)
-    return buf[:-1].reshape(B, E, C, d)
+    src = x.repeat_interleave(top_k, dim=1)  # (B, T*k, d)
+    # zeros laid out as x is (a DTensor keeps its batch sharding); a kept
+    # pair owns its slot, so each slot is one token or zero
+    buf = torch.zeros_like(x[:, :1]).expand(B, E * C + 1, d).contiguous()
+    buf = buf.scatter_add(1, rows[..., None].expand(B, T * top_k, d), src)
+    return buf[:, :-1].reshape(B, E, C, d)
 
 
 def _gather_out(ye: torch.Tensor, rows: torch.Tensor, top_k: int) -> torch.Tensor:
     """Expert outputs (B, E, C, d) back at each (t, k) pair: (B, T, k, d),
     zero for a dropped pair."""
     B, d = ye.shape[0], ye.shape[-1]
-    flat = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))])
-    return flat[rows.reshape(-1)].reshape(B, -1, top_k, d)
+    flat = ye.reshape(B, -1, d)
+    flat = torch.cat([flat, torch.zeros_like(flat[:, :1])], dim=1)  # (B, E*C + 1, d)
+    out = _RowGather.apply(flat, rows[..., None].expand(*rows.shape, d))
+    return out.reshape(B, -1, top_k, d)
+
+
+class _RowGather(torch.autograd.Function):
+    """``src.gather(1, idx)`` whose backward scatters into zeros laid out as
+    the gradient is: the composite backward of ``gather`` makes its zeros
+    from the whole shape, which on a batch-sharded DTensor is the whole
+    batch on every rank.  The same numbers either way."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = src.shape[1]
+        return src.gather(1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        B, _, d = g.shape
+        zeros = torch.zeros_like(g[:, :1]).expand(B, ctx.rows, d).contiguous()
+        return zeros.scatter_add(1, idx, g), None
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the incoming gradient contiguous.  A
+    DTensor gradient can arrive with a transposed local shard, which the
+    expert einsum's backward then views as (E, B·C, ·) and cannot; on a
+    plain, contiguous gradient it does nothing."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _experts(spec: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _ContiguousGrad.apply(torch.einsum(spec, a, w))
 
 
 def moe_apply_dense(
@@ -113,10 +159,12 @@ def moe_apply_dense(
     dd, f32 = x.dtype, torch.float32
     gates, _, rows, aux, E, C = _route(params, x, top_k, capacity_factor)
     xe = _dispatch(x, rows, top_k, E, C).to(f32)
-    g = torch.einsum("becd,edf->becf", xe, params["w_gate"].to(f32))
-    u = torch.einsum("becd,edf->becf", xe, params["w_up"].to(f32))
+    g = _experts("becd,edf->becf", xe, params["w_gate"].to(f32))
+    u = _experts("becd,edf->becf", xe, params["w_up"].to(f32))
     h = (activation(act)(g) * u).to(dd)
-    ye = torch.einsum("becf,efd->becd", h.to(f32), params["w_down"].to(f32)).to(dd)
+    # w_down split over its hidden width leaves ye a pending sum: reduced
+    # before the gather back to tokens (a no-op unsharded)
+    ye = reduce_partial(_experts("becf,efd->becd", h.to(f32), params["w_down"].to(f32))).to(dd)
     out = _gather_out(ye, rows, top_k).to(f32)
     y = (out * gates.to(dd).to(f32)[..., None]).sum(2)
     return y.to(dd), aux
@@ -134,9 +182,9 @@ def moe_apply(
     gates, ids, rows, aux, E, C = _route(params, x, top_k, capacity_factor)
     xe = _dispatch(x, rows, top_k, E, C)
     a = activation(act)
-    h = a(torch.einsum("becd,edf->becf", xe, params["w_gate"])) * torch.einsum(
+    h = a(_experts("becd,edf->becf", xe, params["w_gate"])) * _experts(
         "becd,edf->becf", xe, params["w_up"])
-    ye = torch.einsum("becf,efd->becd", h, params["w_down"])
+    ye = reduce_partial(_experts("becf,efd->becd", h, params["w_down"]))
     terms = _gather_out(ye, rows, top_k) * gates.to(dd)[..., None]  # (B, T, k, d)
     order = ids.argsort(dim=-1)  # a token's k experts are distinct
     terms = terms.gather(2, order[..., None].expand_as(terms))

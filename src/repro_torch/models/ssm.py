@@ -24,6 +24,7 @@ kernel runs forward-only and its final state is that ``h``.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import _segsum
 from repro_torch.kernels.ssd_scan import ssd_scan_torch as ssd_chunked
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.sharding import on_local_rows, shard_batch
 
 __all__ = ["init_mamba", "mamba_decode", "mamba_forward", "ssd_chunked", "_segsum", "_causal_conv"]
 
@@ -120,7 +122,11 @@ def mamba_forward(
     B, S, _ = x.shape
     P = d_inner // n_heads
     GN = n_groups * d_state
-    zxbcdt = x @ params["in_proj"]
+    # the projection's columns gathered and the batch anchored (a no-op
+    # unless sharding axes are installed): DTensor cannot split the SSD's
+    # heads across the scan's reshapes, so the block runs whole on each
+    # 'model' rank, as the attention does after its anchor
+    zxbcdt = shard_batch(x @ params["in_proj"])
     z, xBC, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * GN, n_heads], dim=-1)
     xBC, conv_state = _causal_conv(xBC, params["conv_w"], params["conv_b"], None)
     xBC = F.silu(xBC)
@@ -134,9 +140,8 @@ def mamba_forward(
     pad = (-S) % chunk  # zero-pad to a chunk multiple: x=0 adds nothing to the
     if pad:  # state and dA=0 gives decay exp(0)=1, so padding is exact
         xdt, dA, Bm, Cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xdt, dA, Bm, Cm))
-    y, h = ops.ssd_scan(
-        xdt.contiguous(), dA.contiguous(), Bm.contiguous(), Cm.contiguous(), chunk=chunk, impl=impl
-    )
+    y, h = on_local_rows(partial(ops.ssd_scan, chunk=chunk, impl=impl), xdt.contiguous(),
+                         dA.contiguous(), Bm.contiguous(), Cm.contiguous(), n_out=2)
     y = y[:, :S]
     y = y + params["D"][None, None, :, None] * xs.float()
     y = y.reshape(B, S, d_inner).to(x.dtype)
@@ -168,7 +173,7 @@ def mamba_decode(
     GN = n_groups * d_state
     rep = n_heads // n_groups
     f32 = torch.float32
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = shard_batch(x @ params["in_proj"])  # as in mamba_forward
     z, xBC, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * GN, n_heads], dim=-1)
     xBC, conv_state = _causal_conv(xBC, params["conv_w"], params["conv_b"], cache["conv"])
     xBC = F.silu(xBC)

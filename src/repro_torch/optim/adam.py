@@ -28,7 +28,8 @@ def adamw_init(
 ) -> AdamWState:
     if keep_master is None:
         keep_master = any(p.dtype != torch.float32 for p in params.values())
-    zeros = {k: torch.zeros(p.shape, dtype=state_dtype, device=p.device) for k, p in params.items()}
+    # zeros_like: a DTensor parameter's moments take its placements
+    zeros = {k: torch.zeros_like(p, dtype=state_dtype) for k, p in params.items()}
     return AdamWState(
         step=0,
         mu=zeros,
