@@ -161,7 +161,26 @@ never imports ``jax`` or the JAX package):
      2×16×16, train_4k), each a process of its own started at the phase's
      beginning, one row each of the dry run (state per GPU, fits, the three
      terms, bottleneck) and of the credit;
- 13. a JSON line of the kernels, then the card as the last line.
+     (d) also runs, in the same pool, the dry run's decode cells over a KV
+     cache sharded on the sequence (chatglm3-6b x decode_32k and
+     mixtral-8x7b x long_500k on 16×16, jamba-1.5-large-398b x long_500k on
+     2×16×16): each must run to a row whose collectives count the
+     softmax's all-reduce across the sequence shards (phase 13 (d));
+ 13. the last modules of the port: (b) ``ops.coded_reduce(impl="best")``
+     at smollm's wire, (n_slots, D) and (m, D) f32 and (m, D) int8 -> f32,
+     from a cold tuner with the counts at 0: ``best_launch``'s pick
+     bit-equal to the default launch, its time beside the default's, the
+     plain version's, ``torch.mv``'s and ``best_reduce_schedule``'s pick,
+     and every candidate launch shape bit-equal to the default at ragged D,
+     a misaligned base and int8 / bf16 stacks; (a) full-width smollm-360m
+     through ``StepEngine`` on ``fused`` at phase 1's shapes, three steps
+     with ``host_pack=True`` and three with the device pack from the same
+     weights and batches (losses and grad norms to rtol 1e-6, bit-equality
+     printed; median ``phase.pack+upload`` against ``phase.upload``, each
+     step's time); (c) the four ``examples/torch/*.py`` on the card, each a
+     process of its own, all started together, each exiting 0 with its own
+     checks passing, their wall times printed;
+ 14. a JSON line of the kernels, then the card as the last line.
 
 Each main path and serving path is driven with every kernel's launch count
 set to 0 just before it and read just after.  Exits non-zero, printing no result,
@@ -2389,6 +2408,14 @@ def large_model_path(torch) -> dict:
              str(DRY_DIR / f"{cell.replace(':', '__')}.json")],
             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for cell in DRY_CELLS}
+    # phase 13 (d) in the same pool: the decode cells over a KV cache
+    # sharded on the sequence, one dry-run process each
+    decode_procs = {
+        cell: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+             cell[1], "--mesh", cell[2], "--out", str(DRY_DIR / "decode")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in REPAIRED_CELLS}
     t_credit = time.perf_counter()
     out: dict = {}
     try:
@@ -2482,7 +2509,8 @@ def large_model_path(torch) -> dict:
         out["c"] = mr
     finally:
         # (d) the dry-run rows and the kernel credit of JAX's cells
-        logs = {cell: p.communicate(timeout=DRY_TIMEOUT_S)[0] for cell, p in credit_procs.items()}
+        logs = {cell: p.communicate(timeout=DRY_TIMEOUT_S)[0]
+                for cell, p in (*credit_procs.items(), *decode_procs.items())}
     log(f"phase 12 (d): kernel_credit on {len(DRY_CELLS)} cells, in parallel, "
         f"{time.perf_counter() - t_credit:.1f} s")
     rows = {}
@@ -2504,6 +2532,251 @@ def large_model_path(torch) -> dict:
                       "mfu_kernelized": rec["mfu_kernelized"]}
         log(f"phase 12 (d) {cell}: " + json.dumps(rows[cell]))
     out["d"] = rows
+    decode_rows = {}
+    for cell, p in decode_procs.items():
+        if p.returncode != 0:
+            for line in logs[cell].splitlines()[-40:]:
+                log("  ! " + line[:300])
+            raise AssertionError(f"phase 13 (d): dry run {cell} exited {p.returncode}")
+        r = json.loads((DRY_DIR / "decode" / f"{'__'.join(cell)}.json").read_text())
+        if not r["coll_breakdown"].get("all-reduce", 0) > 0:
+            raise AssertionError(f"phase 13 (d): {cell} counts no all-reduce for its softmax")
+        decode_rows["|".join(cell)] = {
+            k: r[k] for k in ("mesh", "state_bytes_per_chip", "fits_h100_state", "bottleneck",
+                              "t_compute_s", "t_memory_s", "t_collective_s", "coll_breakdown",
+                              "flops_per_chip", "bytes_per_chip", "compile_s")}
+        log(f"phase 13 (d) dry run {' x '.join(cell)}: " + json.dumps(decode_rows["|".join(cell)]))
+    out["decode_cells"] = decode_rows
+    return out
+
+
+# phase 13, the last modules: the engine's host pack at phase 1's shapes,
+# the coded_reduce launch-shape tuner at smollm's wire, the ported examples,
+# and the dry run's decode cells over a sequence-sharded KV cache
+HOST_PACK = dict(part_mb=2, seq=64, steps=3)
+EXAMPLES = ROOT / "examples" / "torch"
+EXAMPLE_ENV = {"quickstart": {}, "train_coded": {"SMOKE": "1"}, "serve_lm": {},
+               "elastic_restart": {}}
+EXAMPLE_TIMEOUT_S = 420
+REPAIRED_CELLS = (("chatglm3-6b", "decode_32k", "single"), ("mixtral-8x7b", "long_500k", "single"),
+                  ("jamba-1.5-large-398b", "long_500k", "multi"))
+# launch-shape checks off the main path's shapes: ragged D (the VEC = 1
+# branch, and past every block cap's grid, so the grid-stride loop turns)
+# and a base 4 bytes off 16-byte alignment
+TUNE_CHECKS = (("f32 ragged", "float32", 5, 1_000_003, 0), ("f32 unaligned", "float32", 5,
+               1 << 22, 1), ("bf16 ragged", "bfloat16", 4, 1_000_001, 0),
+               ("int8 ragged", "int8", 4, 1_000_005, 0), ("int8 aligned", "int8", 4, 1 << 24, 0))
+
+
+def host_pack_path(torch) -> dict:
+    """Phase 13 (a): full-width smollm-360m through ``StepEngine`` on
+    ``fused`` at phase 1's shapes (heter_aware, m 4, s 1, part_mb 2, seq 64),
+    three steps with ``host_pack=True`` and three with the device pack from
+    the same weights and batches, one straggler a step: the losses and grad
+    norms equal at rtol 1e-6 (whether bit-equal is printed), the median
+    ``phase.pack+upload`` against the device pack's ``phase.upload``, and
+    each step's host-clock time (ending in a synchronize)."""
+    import gc
+
+    from repro_torch.configs import CodingConfig, TrainConfig, get_config
+    from repro_torch.core.codec import Codec
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.lm import build_model
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.optim.adam import adamw_init
+    from repro_torch.train.engine import StepEngine, TrainerState
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg)
+    codec = Codec.from_config(CodingConfig(scheme="heter_aware", s=S), m=M, rng=1)
+    data = SyntheticData(cfg, k=codec.k, part_mb=HOST_PACK["part_mb"], seq_len=HOST_PACK["seq"])
+    steps = HOST_PACK["steps"]
+    batches = [data.batch(i) for i in range(steps)]
+    outcomes = [codec.decode_outcome([w for w in range(M) if w != i % M]) for i in range(steps)]
+    runs = {}
+    for host_pack in (True, False):
+        eng = StepEngine(model, TrainConfig(), codec, backend="fused", device="cuda",
+                         host_pack=host_pack)
+        eng.tracer = Tracer()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        state = TrainerState(params=params, opt=adamw_init(params), step=0)
+        times, mets = [], []
+        for batch, outcome in zip(batches, outcomes):
+            t0 = time.perf_counter()
+            state, met = eng.step(state, batch, outcome)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({"loss": met["loss"], "grad_norm": met["grad_norm"]})
+        name = "phase.pack+upload" if host_pack else "phase.upload"
+        spans = eng.tracer.records(kind="span", name=name)
+        if len(spans) != steps:
+            raise AssertionError(f"host_pack={host_pack}: {len(spans)} {name} spans")
+        fused = eng.tracer.records(kind="span", name="phase.fused")
+        runs[host_pack] = {"metrics": mets, "step_s": times,
+                           "upload_ms": [1e3 * (r["t1"] - r["t0"]) for r in spans],
+                           "fused_ms": [1e3 * (r["t1"] - r["t0"]) for r in fused]}
+        del eng, params, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    host, dev = runs[True], runs[False]
+    for i, (a, b) in enumerate(zip(host["metrics"], dev["metrics"])):
+        for key in ("loss", "grad_norm"):
+            if not math.isclose(a[key], b[key], rel_tol=1e-6):
+                raise AssertionError(f"host pack vs device pack, step {i}: {key} {a[key]!r} "
+                                     f"vs {b[key]!r} (rtol 1e-6)")
+    bit_equal = host["metrics"] == dev["metrics"]
+    out = {"host_pack": host, "device_pack": dev, "bit_equal": bit_equal,
+           "upload_median_ms": {"host": statistics.median(host["upload_ms"]),
+                                "device": statistics.median(dev["upload_ms"])}}
+    log(f"phase 13 (a) {ARCH} fused, host pack vs device pack over {steps} steps: losses "
+        f"{[m['loss'] for m in host['metrics']]} / {[m['loss'] for m in dev['metrics']]}, grad "
+        f"norms {[m['grad_norm'] for m in host['metrics']]} / "
+        f"{[m['grad_norm'] for m in dev['metrics']]} (rtol 1e-6; bit-equal: {bit_equal}); "
+        f"median phase.pack+upload {out['upload_median_ms']['host']:.3f} ms vs phase.upload "
+        f"{out['upload_median_ms']['device']:.3f} ms; steps (s) "
+        f"{[round(t, 4) for t in host['step_s']]} / {[round(t, 4) for t in dev['step_s']]}")
+    return out
+
+
+def tuner_path(torch, cr, n_slots: int) -> dict:
+    """Phase 13 (b): ``ops.coded_reduce(impl="best")`` at smollm's wire,
+    (n_slots, D) and (m, D) f32 and (m, D) int8 -> f32, D = 361,821,120,
+    driven from a cold tuner with the counts at 0 (each first call probes
+    ``best_launch``'s 12 shapes: 2 + 4 x 3 launches each).  At each: the
+    pick bit-equal to the default launch (``torch.equal``), its time beside
+    the default's (in turns), ``torch.mv``'s (f32) and the plain version's,
+    and ``best_reduce_schedule``'s pick with its time.  Then every candidate
+    shape held bit-equal to the default at ragged D, a misaligned base and
+    int8, bf16 (TUNE_CHECKS)."""
+    from repro_torch.kernels import autotune, ops
+
+    dev = torch.device("cuda")
+    shapes = ((n_slots, "float32", "encode (P = n_slots)"), (M, "float32", "decode (P = m)"),
+              (M, "int8", "int8 wire decode (P = m)"))
+    stacks = []
+    for P, dt, label in shapes:
+        gen = torch.Generator(device=dev).manual_seed(100 + P)
+        if dt == "int8":
+            g = torch.randint(-127, 128, (P, D_FULL), generator=gen, device=dev, dtype=torch.int8)
+        else:
+            g = torch.randn(P, D_FULL, generator=gen, device=dev)
+        stacks.append((g, torch.randn(P, generator=gen, device=dev), label))
+    cr.coded_reduce.launches = cr.coded_reduce.shaped_launches = 0
+    outs = [ops.coded_reduce(g, w, impl="best", out_dtype=torch.float32) for g, w, _ in stacks]
+    torch.cuda.synchronize()
+    launches, shaped = cr.coded_reduce.launches, cr.coded_reduce.shaped_launches
+    n_shapes = len(cr.THREADS) * len(cr.BLOCK_CAPS)
+    want = len(stacks) * (n_shapes * (2 + 4 * 3) + 1)
+    if not launches == shaped == want:
+        raise AssertionError(f"impl='best': {launches} launches ({shaped} shaped), expected "
+                             f"{want}: each shape's probe and its one launch")
+    rows = []
+    for (g, w, label), got in zip(stacks, outs):
+        P, D = g.shape
+        pick = autotune.best_launch(P, D, dev, g.dtype)
+        default = cr.coded_reduce(g, w, torch.float32)
+        if not torch.equal(got, default):
+            raise AssertionError(f"{label}: impl='best' at {pick} is not bit-equal to the "
+                                 f"default launch {cr.DEFAULT_LAUNCH}")
+        ref = cr.coded_reduce_torch(g, w, torch.float32)
+        err = float((got - ref).abs().max())
+        if not err <= 1e-5 * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"{label}: kernel vs plain max_abs_err {err}")
+        del ref, default
+        out = torch.empty(D, device=dev)
+        run_best = lambda: cr.coded_reduce(g, w, torch.float32, out=out, launch=pick)  # noqa: E731
+        run_def = lambda: cr.coded_reduce(g, w, torch.float32, out=out)  # noqa: E731
+        turns = [time_cuda(f) for f in (run_def, run_best, run_best, run_def)]
+        def_ms, best_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain_ms = time_cuda(lambda: cr.coded_reduce_torch(g, w, torch.float32), reps=5,
+                             warmup=1)
+        lib_ms = (time_cuda(lambda: torch.mv(g.t(), w)) if g.dtype == torch.float32 else None)
+        sched, sched_ms = None, None
+        if g.dtype == torch.float32:
+            sched = autotune.best_reduce_schedule(P, D, dev)
+            sched_ms = time_cuda(lambda: autotune.library_reduce(g, w))
+        nbytes = P * D * g.element_size() + D * 4
+        bound_ms, bound_by = bound(nbytes, 2 * P * D)
+        probe = autotune.PROBE_US[("launch", dev.index or 0, P, D, str(g.dtype))]
+        row = dict(label=label, P=P, D=D, dtype=str(g.dtype).removeprefix("torch."),
+                   pick=list(pick), default=list(cr.DEFAULT_LAUNCH), ms=best_ms,
+                   default_ms=def_ms, turns_ms=turns, plain_ms=plain_ms, library_ms=lib_ms,
+                   schedule=sched, schedule_ms=sched_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   max_abs_err=err, probe_us=probe)
+        rows.append(row)
+        log(f"phase 13 (b) coded_reduce impl='best' {label} {row['dtype']} P={P} D={D}: pick "
+            f"{pick} (default {cr.DEFAULT_LAUNCH}), bit-equal to the default; {best_ms:.4f} ms "
+            f"vs default {def_ms:.4f} ms (turns {[round(t, 4) for t in turns]}), bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / best_ms:.1%} of it), plain "
+            f"{plain_ms:.4f} ms, torch.mv {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+            + (f"best_reduce_schedule {sched} {sched_ms:.4f} ms (probe us "
+               f"{autotune.PROBE_US[('reduce_schedule', 'cuda', dev.index or 0, P, D)]}); "
+               if sched else "no library schedule for int8; ")
+            + "launch probe us " + ", ".join(f"{k} {v:.1f}" for k, v in probe.items()))
+        del out
+    del stacks, outs
+    torch.cuda.empty_cache()
+    checks = 0
+    for label, dt, P, D, offset in TUNE_CHECKS:
+        gen = torch.Generator(device=dev).manual_seed(D)
+        dtype = getattr(torch, dt)
+        n = P * D + offset
+        if dtype == torch.int8:
+            buf = torch.randint(-127, 128, (n,), generator=gen, device=dev, dtype=dtype)
+        else:
+            buf = torch.randn(n, generator=gen, device=dev).to(dtype)
+        g = buf[offset:].view(P, D)
+        w = torch.randn(P, generator=gen, device=dev)
+        want_out = cr.coded_reduce(g, w, torch.float32)
+        for threads in cr.THREADS:
+            for blocks in cr.BLOCK_CAPS:
+                got = cr.coded_reduce(g, w, torch.float32, launch=(blocks, threads))
+                if not torch.equal(got, want_out):
+                    raise AssertionError(f"{label} P={P} D={D}: launch ({blocks}, {threads}) "
+                                         "is not bit-equal to the default")
+                checks += 1
+        torch.cuda.synchronize()
+        log(f"phase 13 (b) {label} {dt} P={P} D={D} base +{offset * buf.element_size()} B: all "
+            f"{n_shapes} launch shapes bit-equal to the default")
+        del buf, g, want_out
+    return {"rows": rows, "launches": launches, "checks_bit_equal": checks}
+
+
+def examples_path(torch) -> dict:
+    """Phase 13 (c): the four ``examples/torch/*.py`` on the card, each in a
+    process of its own, all started together; each must exit 0 (their own
+    checks assert), its wall time printed."""
+    import os
+    import shutil
+
+    shutil.rmtree(ROOT / "build" / "examples", ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(EXAMPLES / f"{name}.py")], cwd=ROOT,
+                                    env={**env, **extra}, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, extra in EXAMPLE_ENV.items()}
+    out, failed = {}, []
+    try:
+        for name, proc in procs.items():
+            text = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)[0]
+            out[name] = {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+                         "tail": text.strip().splitlines()[-3:]}
+            if proc.returncode != 0:
+                failed.append(name)
+                for line in text.splitlines()[-40:]:
+                    log("  ! " + line[:300])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, rec in out.items():
+        log(f"phase 13 (c) examples/torch/{name}.py: exit {rec['rc']}, done {rec['wall_s']:.1f} s "
+            f"after the start; last lines {rec['tail']}")
+    if failed:
+        raise AssertionError(f"phase 13 (c): {failed} failed on the card")
+    shutil.rmtree(ROOT / "build" / "examples", ignore_errors=True)
     return out
 
 
@@ -2562,7 +2835,7 @@ def main() -> int:
     tssd = time_ssd(torch)
     tflash = time_flash(torch)
     auto = autotune.wire_kernel_default("cuda")
-    probe = next(iter(autotune.PROBE_US.values()))
+    probe = next(v for k, v in autotune.PROBE_US.items() if k[0] == "wire_kernel")
     log(f"wire_kernel_default on this card: {auto} (probe at f32 (8, 65536): "
         + ", ".join(f"{k} {v:.1f} us" for k, v in probe.items()) + ")")
 
@@ -2629,10 +2902,20 @@ def main() -> int:
     # 11. the spmd backend across processes: M ranks on the card over gloo
     group = group_path(torch, faults)
 
-    # 12. the large-model training levers: remat, accumulation, the dry run
+    # 12. the large-model training levers: remat, accumulation, the dry
+    # run (its pool also runs 13 (d), the sharded-KV decode cells)
     large = large_model_path(torch)
 
-    # 13. the kernels line, then the card
+    # 13. the last modules: (b) the launch-shape tuner alone on the card,
+    # (a) the host pack, (c) the examples
+    t13 = time.perf_counter()
+    tuned = tuner_path(torch, cr, n_slots)
+    hpack = host_pack_path(torch)
+    examples = examples_path(torch)
+    log(f"phase 13 (a)-(c) took {time.perf_counter() - t13:.1f} s")
+    best = tuned["rows"][0]
+
+    # the kernels line, then the card
     kernels = [{
         "name": "coded_reduce",
         "route": "cuda",
@@ -2740,6 +3023,24 @@ def main() -> int:
                            "f32": "f32 FMAs on the CUDA cores"},
         "hgmma_instructions": hgmma,
         "checks": flash_check,
+    }, {
+        "name": "coded_reduce_best",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/coded_reduce.cu",
+        "replaces": "src/repro/kernels/coded_reduce.py:150",
+        "launches": tuned["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in tuned["rows"]),
+        "ms": best["ms"], "plain_ms": best["plain_ms"], "bound_ms": best["bound_ms"],
+        "bound_by": best["bound_by"], "library_ms": best["library_ms"],
+        "shape": f"ops.coded_reduce(impl='best'): f32 ({best['P']}, {best['D']}) -> "
+                 f"({best['D']},) at best_launch's {tuple(best['pick'])}, default "
+                 f"{tuple(best['default'])} {best['default_ms']:.4f} ms",
+        "launches_note": "the first call at each of the 3 shapes probes best_launch's 12 "
+                         "launch shapes (14 launches each), then launches once",
+        "shapes": [{k: r[k] for k in ("label", "P", "D", "dtype", "pick", "ms", "default_ms",
+                                      "plain_ms", "library_ms", "schedule", "schedule_ms",
+                                      "bound_ms", "max_abs_err")} for r in tuned["rows"]],
+        "checks_bit_equal": tuned["checks_bit_equal"],
     }]
     log(f"summary: spmd step {run['step_s']:.4f} s (median), peak {run['peak_gib']:.2f} GiB, "
         f"losses {run['losses']}; spmd --compress step {wire_run['step_s']:.4f} s, "
@@ -2757,6 +3058,7 @@ def main() -> int:
     log(f"summary: family f32 checks {json.dumps(fam_f32, default=str)}")
     log(f"summary: group {json.dumps(group, default=str)}")
     log(f"summary: large-model levers {json.dumps(large, default=str)}")
+    log(f"summary: last modules {json.dumps({'tuner': tuned, 'host_pack': hpack, 'examples': examples}, default=str)}")
     log(f"summary: chip_smoke took {time.perf_counter() - _T0:.1f} s to its summary")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

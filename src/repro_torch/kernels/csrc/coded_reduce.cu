@@ -22,6 +22,14 @@
 // not, the same loop runs with VEC = 1: one element a thread, which also
 // covers the ragged end of D.  A grid-stride loop covers any D.
 //
+// Launch shape.  coded_reduce_launch uses the default shape (256 threads,
+// blocks = ceil(n_work / 256) capped at 16 a SM).  coded_reduce_launch_shaped
+// takes the threads (128, 256 or 512, each its own instantiation with
+// matching launch bounds) and the block cap, which kernels/autotune.py's
+// best_launch picks by measurement.  The shape moves no value: each column
+// is summed by one thread over p = 0 .. P-1 whatever thread owns it, so
+// every shape gives the default's bits.
+//
 // Every row is multiplied in, whatever its weight: a NaN weight must give
 // NaN where it multiplies (the trainer's poisoned-payload contract), and
 // 0 * NaN = NaN is kept.  The kernel allocates nothing and launches on the
@@ -38,7 +46,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // the default launch shape
 constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks per SM on H100
 
 // dtype codes shared with the Python wrapper
@@ -53,8 +61,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename T, typename OutT, int VEC>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, typename OutT, int VEC, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 coded_reduce_kernel(const T* __restrict__ g, const float* __restrict__ w,
                     OutT* __restrict__ out, int P, long long D) {
   extern __shared__ float w_s[];
@@ -84,26 +92,39 @@ coded_reduce_kernel(const T* __restrict__ g, const float* __restrict__ w,
   }
 }
 
-template <typename T, typename OutT>
-cudaError_t launch_typed(const void* g, const float* w, void* out, int P, long long D,
-                         cudaStream_t stream) {
+template <typename T, typename OutT, int THREADS>
+cudaError_t launch_shaped(const void* g, const float* w, void* out, int P, long long D,
+                          int max_blocks, cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   const bool aligned = (D % VEC == 0) &&
                        (reinterpret_cast<std::uintptr_t>(g) % 16 == 0) &&
                        (reinterpret_cast<std::uintptr_t>(out) % 16 == 0);
   const long long n_work = aligned ? D / VEC : D;
-  long long blocks = (n_work + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  long long blocks = (n_work + THREADS - 1) / THREADS;
+  if (blocks > max_blocks) blocks = max_blocks;
   if (blocks < 1) blocks = 1;
   const size_t smem = static_cast<size_t>(P) * sizeof(float);
   if (aligned) {
-    coded_reduce_kernel<T, OutT, VEC><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-        static_cast<const T*>(g), w, static_cast<OutT*>(out), P, D);
+    coded_reduce_kernel<T, OutT, VEC, THREADS>
+        <<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+            static_cast<const T*>(g), w, static_cast<OutT*>(out), P, D);
   } else {
-    coded_reduce_kernel<T, OutT, 1><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-        static_cast<const T*>(g), w, static_cast<OutT*>(out), P, D);
+    coded_reduce_kernel<T, OutT, 1, THREADS>
+        <<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+            static_cast<const T*>(g), w, static_cast<OutT*>(out), P, D);
   }
   return cudaGetLastError();
+}
+
+template <typename T, typename OutT>
+cudaError_t launch_typed(const void* g, const float* w, void* out, int P, long long D,
+                         int max_blocks, int threads, cudaStream_t stream) {
+  switch (threads) {
+    case 128: return launch_shaped<T, OutT, 128>(g, w, out, P, D, max_blocks, stream);
+    case 256: return launch_shaped<T, OutT, 256>(g, w, out, P, D, max_blocks, stream);
+    case 512: return launch_shaped<T, OutT, 512>(g, w, out, P, D, max_blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -114,23 +135,41 @@ extern "C" {
 int coded_reduce_max_rows() { return coded_accum::kMaxRows; }
 
 // g: (P, D) contiguous, dtype in_code; w: (P,) f32; out: (D,) dtype out_code.
-// out_code is f32 or in_code (int8 input takes f32 output only).
-// Returns the cudaError_t of the launch (0 on success).
-int coded_reduce_launch(const void* g, const void* w, void* out, long long P, long long D,
-                        int in_code, int out_code, void* stream) {
-  if (P < 1 || D < 1 || P > coded_reduce_max_rows()) return cudaErrorInvalidValue;
+// out_code is f32 or in_code (int8 input takes f32 output only).  The
+// launch takes `threads` (128, 256 or 512) a block and at most
+// `max_blocks` blocks.  Returns the cudaError_t of the launch (0 on
+// success).
+int coded_reduce_launch_shaped(const void* g, const void* w, void* out, long long P,
+                               long long D, int in_code, int out_code, int max_blocks,
+                               int threads, void* stream) {
+  if (P < 1 || D < 1 || P > coded_reduce_max_rows() || max_blocks < 1)
+    return cudaErrorInvalidValue;
   const int p = static_cast<int>(P);
   const float* wf = static_cast<const float*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_code == kF32 && out_code == kF32)
-    return launch_typed<float, float>(g, wf, out, p, D, s);
+    return launch_typed<float, float>(g, wf, out, p, D, max_blocks, threads, s);
   if (in_code == kBF16 && out_code == kBF16)
-    return launch_typed<__nv_bfloat16, __nv_bfloat16>(g, wf, out, p, D, s);
+    return launch_typed<__nv_bfloat16, __nv_bfloat16>(g, wf, out, p, D, max_blocks, threads, s);
   if (in_code == kBF16 && out_code == kF32)
-    return launch_typed<__nv_bfloat16, float>(g, wf, out, p, D, s);
+    return launch_typed<__nv_bfloat16, float>(g, wf, out, p, D, max_blocks, threads, s);
   if (in_code == kI8 && out_code == kF32)
-    return launch_typed<int8_t, float>(g, wf, out, p, D, s);
+    return launch_typed<int8_t, float>(g, wf, out, p, D, max_blocks, threads, s);
   return cudaErrorInvalidValue;
+}
+
+// The default launch shape: every caller but impl="best" (the spmd encode
+// and decode, the int8 wire's decode).
+int coded_reduce_launch(const void* g, const void* w, void* out, long long P, long long D,
+                        int in_code, int out_code, void* stream) {
+  return coded_reduce_launch_shaped(g, w, out, P, D, in_code, out_code, kMaxBlocks, kThreads,
+                                    stream);
+}
+
+// The default launch shape, for the Python wrapper: {max_blocks, threads}.
+void coded_reduce_default_launch(int* shape) {
+  shape[0] = kMaxBlocks;
+  shape[1] = kThreads;
 }
 
 }  // extern "C"

@@ -4,6 +4,11 @@
 ``impl``:
   - "cuda":  the hand-written sm_90a kernel; the tensors must be on a card.
   - "torch": the plain PyTorch version, on any device.
+  - "best":  measured-fastest on this device (``coded_reduce`` only): on a
+             CUDA tensor the kernel at ``autotune.best_launch``'s launch
+             shape, on a CPU one ``autotune.library_reduce``, the fastest
+             library schedule (as JAX's non-TPU branch is) — see
+             ``autotune.py``.
   - None:    "cuda" for a CUDA tensor, "torch" for a CPU one.
 """
 
@@ -11,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import wire
+from repro_torch.kernels import autotune, wire
 from repro_torch.kernels.coded_reduce import coded_reduce as _coded_reduce_kernel
 from repro_torch.kernels.coded_reduce import coded_reduce_torch
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_kernel
@@ -19,14 +24,16 @@ from repro_torch.kernels.flash_attention import flash_attention_torch
 from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_torch
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan_kernel
 
-IMPLS = ("cuda", "torch")
+IMPLS = ("cuda", "torch", "best")
 
 
-def _resolve(impl: str | None, x: torch.Tensor) -> str:
+def _resolve(impl: str | None, x: torch.Tensor, best: bool = False) -> str:
     if impl is None:
         return "cuda" if x.is_cuda else "torch"
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    if impl == "best" and not best:
+        raise ValueError("impl='best' is coded_reduce's only")
     if impl == "cuda" and not x.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors")
     return impl
@@ -36,7 +43,13 @@ def coded_reduce(
     g: torch.Tensor, w: torch.Tensor, impl: str | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    if _resolve(impl, g) == "torch":
+    impl = _resolve(impl, g, best=True)
+    if impl == "best":
+        if not g.is_cuda:
+            return autotune.library_reduce(g, w, out_dtype)
+        launch = autotune.best_launch(*g.shape, device=g.device, dtype=g.dtype)
+        return _coded_reduce_kernel(g, w, out_dtype, launch=launch)
+    if impl == "torch":
         return coded_reduce_torch(g, w, out_dtype)
     return _coded_reduce_kernel(g, w, out_dtype)
 

@@ -21,16 +21,25 @@ exactly ``window`` rows whatever ``cache_len`` is, position p in slot
 ``p % window``, holding the last ``min(S, window)`` positions; decode
 writes slot ``pos % window`` and reads every slot once the ring has
 wrapped.
+
+A KV cache that is a DTensor (the dry run's sharded decode cells) takes
+another path: :func:`~repro_torch.models.sharding.on_cache_shards` runs the
+write and the attention on each rank's own cache rows, the softmax reduced
+across the sequence shards (:func:`_decode_shard`), so the cache keeps its
+layout.  A plain cache never does.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope
-from repro_torch.models.sharding import shard_batch, split_dim
+from repro_torch.models.sharding import on_cache_shards, shard_batch, split_dim
 
 __all__ = ["NEG_INF", "attention_decode", "attention_forward"]
 
@@ -181,6 +190,11 @@ def attention_decode(
     k = apply_rope(k, posb, rotary_dim=rotary_dim, theta=rope_theta)
 
     kc, vc = cache["k"], cache["v"]
+    if isinstance(kc, DTensor):
+        qh = split_dim(q, 2, (n_kv, G)) * (head_dim**-0.5)
+        o = on_cache_shards(functools.partial(_decode_shard, window=window),
+                            qh, k, v, kc, vc, pos)
+        return o @ params["wo"], {"k": kc, "v": vc}
     S_c = kc.shape[1]
     slot = (pos % S_c if window is not None else pos.clamp(max=S_c - 1)).long()
     if pos.dim():
@@ -203,3 +217,33 @@ def attention_decode(
     s = torch.where(valid[:, None, None, None, :], s, _neg_inf(s))
     out = _gqa_out(torch.softmax(s, dim=-1), vc) @ params["wo"]
     return out, {"k": kc, "v": vc}
+
+
+def _decode_shard(q, k, v, kc, vc, pos, *, start: int, S_c: int, window: int | None, reduce):
+    """:func:`attention_decode`'s write and attention on one rank's rows
+    ``[start, start + S_loc)`` of a (B, S_c, K, hd) cache sharded by
+    sequence (plain local tensors, under ``on_cache_shards``).  The new
+    row is written where this rank holds its slot; the scores of the local
+    rows are masked by their global positions, and the softmax's max and
+    sum and the output's partial sums are ``reduce``d across the shards,
+    the output in f32.  q: (B, 1, K, G, hd); returns (B, 1, K·G·hd)."""
+    B, S_loc = kc.shape[:2]
+    rows = torch.arange(B, device=kc.device)
+    posb = pos.expand(B) if pos.dim() == 0 else pos
+    slot = (posb % S_c if window is not None else posb.clamp(max=S_c - 1)).long()
+    li = slot - start
+    mine = (li >= 0) & (li < S_loc)
+    if pos.dim() and window is None:
+        mine &= posb < S_c  # a (B,) position past the cache writes nothing
+    li = li.clamp(0, S_loc - 1)
+    for c, new in ((kc, k), (vc, v)):
+        c.index_put_((rows, li), torch.where(mine[:, None, None], new[:, 0], c[rows, li]))
+    s = _gqa_scores(q, kc)  # (B, K, G, 1, S_loc)
+    pcol = posb[:, None]
+    valid = start + torch.arange(S_loc, device=kc.device) <= pcol
+    if window is not None:
+        valid = valid | (pcol >= S_c)
+    s = torch.where(valid[:, None, None, None, :], s, _neg_inf(s))
+    e = torch.exp(s - reduce(s.amax(-1, keepdim=True), "max"))
+    p = e / reduce(e.sum(-1, keepdim=True), "sum")
+    return reduce(_gqa_out(p, vc).float(), "sum").to(vc.dtype)

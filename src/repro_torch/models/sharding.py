@@ -20,7 +20,8 @@ where DTensor's own sharding rules fall short (each a no-op on a plain
 tensor): :func:`reduce_partial` after a row-parallel output,
 :func:`gather_data_shards` for FSDP, :func:`embedding` over vocab-sharded
 rows, :func:`split_dim` / :func:`unshard_dim` where a sharded dim cannot be
-split or unbound, and :func:`on_local_rows` for the SSD scan.
+split or unbound, :func:`on_local_rows` for the SSD scan, and
+:func:`on_cache_shards` for one-token decode over a sharded KV cache.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 __all__ = [
-    "activation_axes", "distribute", "embedding", "gather_data_shards", "on_local_rows",
+    "activation_axes", "distribute", "embedding", "gather_data_shards", "on_cache_shards",
+    "on_local_rows",
     "placements", "reduce_partial", "set_activation_axes", "shard_batch", "split_dim",
     "unshard_dim",
 ]
@@ -182,6 +184,65 @@ def on_local_rows(fn, *xs: torch.Tensor, n_out: int = 1):
     out_pl = pl if n_out == 1 else (pl,) * n_out
     return local_map(fn, out_placements=out_pl, in_placements=(pl,) * len(xs),
                      redistribute_inputs=True, device_mesh=mesh)(*xs)
+
+
+def on_cache_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kc: DTensor, vc: DTensor, pos: torch.Tensor) -> DTensor:
+    """One-token decode on each rank's own rows of a (B, S_c, K, hd) KV
+    cache DTensor, its layout kept: ``fn(q, k, v, kc, vc, pos, start=,
+    S_c=, reduce=)`` runs under ``local_map`` on the local shards, with
+    ``start`` the first sequence row this rank holds and ``reduce(t, op)``
+    an all-reduce (``"max"``, ``"sum"``) over the mesh dims that shard the
+    sequence (the identity where none does).  q, k, v and pos are
+    redistributed to the cache's batch layout (its batch shards, every
+    other mesh dim replicated); ``fn`` writes its new rows into the local
+    cache shards in place and returns the (B, 1, ·) output in that layout.
+
+    DTensor's own rules cannot take this cache: its ``index_copy_`` moves
+    the cache's model shards from the sequence to the head dim, in place,
+    and its einsums then view the uneven local shards of a head dim (2 or
+    8 KV heads over 16 ranks) at global shapes.  GSPMD keeps the sequence
+    sharded, reduces the softmax across the shards and sums the partial
+    outputs, and so does this: three all-reduces a layer, of the (B, K, G)
+    max and sum and the (B, H·hd) f32 output, counted by the dry run."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = kc.device_mesh
+    if tuple(vc.placements) != tuple(kc.placements):
+        raise ValueError(f"k and v caches differ in layout: {kc.placements} / {vc.placements}")
+    cache_pl = tuple(kc.placements)
+    rows_pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                    for p in cache_pl)
+    seq_dims = [i for i, p in enumerate(cache_pl) if isinstance(p, Shard) and p.dim == 1]
+    S_c = kc.shape[1]
+    n_shards = 1
+    for i in seq_dims:
+        n_shards *= mesh.size(i)
+    if S_c % n_shards:
+        raise ValueError(f"cache of {S_c} rows does not split evenly over {n_shards} ranks")
+    # the chunk index of this rank's rows: DTensor splits the sequence over
+    # its mesh dims in mesh order, the first the major one
+    coord, chunk = mesh.get_coordinate(), 0
+    for i in seq_dims:
+        chunk = chunk * mesh.size(i) + coord[i]
+
+    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        for i in seq_dims:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+        return t
+
+    def local(*xs):
+        return fn(*xs, start=chunk * (S_c // n_shards), S_c=S_c, reduce=reduce)
+
+    args = (q, k, v, kc, vc, pos)
+    in_pl = tuple(
+        None if not isinstance(x, DTensor)
+        else cache_pl if x is kc or x is vc
+        else rows_pl if x.dim() else (Replicate(),) * mesh.ndim
+        for x in args)
+    return local_map(local, out_placements=(rows_pl,), in_placements=in_pl,
+                     redistribute_inputs=True, device_mesh=mesh)(*args)
 
 
 def placements(spec: tuple, mesh) -> tuple:

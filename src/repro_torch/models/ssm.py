@@ -34,7 +34,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_scan import _segsum
 from repro_torch.kernels.ssd_scan import ssd_scan_torch as ssd_chunked
 from repro_torch.models.layers import dense_init, rms_norm
-from repro_torch.models.sharding import on_local_rows, shard_batch
+from repro_torch.models.sharding import on_local_rows, reduce_partial, shard_batch
 
 __all__ = ["init_mamba", "mamba_decode", "mamba_forward", "ssd_chunked", "_segsum", "_causal_conv"]
 
@@ -187,7 +187,10 @@ def mamba_decode(
     h = cache["h"] * a[..., None, None] + torch.einsum(
         "bhp,bhn->bhpn", xs * dt[..., None], Bm.to(f32)
     )
-    y = torch.einsum("bhpn,bhn->bhp", h, Cm.to(f32))
+    # a state sharded over N (the dry run's cache layout) leaves y a pending
+    # sum: carried out here, where torch 2.11's DTensor would move the
+    # skip term to a pending sum instead, which it cannot
+    y = reduce_partial(torch.einsum("bhpn,bhn->bhp", h, Cm.to(f32)))
     y = y + params["D"][None, :, None] * xs
     y = y.reshape(B, 1, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], 1e-5)

@@ -4,7 +4,9 @@ gradient backends (the port of ``src/repro/train/engine.py``).
   - ``fused``     — encode/decode folded into per-sequence loss weights;
                     one forward/backward over the (s+1)×-replicated coded
                     batch, packed on the device from the k·mb unique
-                    sequences.
+                    sequences (or, with ``host_pack``, packed on the host
+                    in numpy and uploaded whole: the baseline the device
+                    pack is held against).
   - ``reference`` — the paper's protocol verbatim (O(m·n) backward
                     passes).  The oracle.
   - ``spmd``      — the wire protocol: per-worker flat encode and the
@@ -47,8 +49,6 @@ the world at the top of the next gradient call after a ``Codec.version``
 bump: the group is re-derived when m moved, each retained worker's
 error-feedback row moves from its old rank to its new one, and a rank
 that enters the group receives params and optimizer state from rank 0.
-
-Not ported yet: the host-side pack baseline (``host_pack``).
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.aggregator import (
     FlatView,
     faithful_spmd_step,
+    slot_weights,
     group_spmd_step,
     pack_coded_batch,
     pack_flat_device,
@@ -139,7 +140,9 @@ class StepEngine:
     carried error-feedback row is bit-equal to the row its worker held
     before, and joiners' rows zero; the audits land in ``row_audits``.
     ``wire_out``, when a dict, receives the int8 wire each compressed
-    fused-kernel decode read (``q``, ``ws``).
+    fused-kernel decode read (``q``, ``ws``).  ``host_pack`` (fused only)
+    packs the coded batch on the host (:meth:`_flat_batch`) and uploads it
+    whole, in place of the device pack.
     """
 
     def __init__(
@@ -153,6 +156,7 @@ class StepEngine:
         compress: bool = False,
         wire_kernel: bool | None = None,
         group: CodedGroup | None = None,
+        host_pack: bool = False,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
@@ -165,6 +169,7 @@ class StepEngine:
         self.group = group
         self.device = group.device if group is not None else torch.device(device)
         self.compress = compress
+        self.host_pack = host_pack
         # fused int8 wire kernel: None defers to the probe, on only where
         # the fused encode measured faster on this card (never on a CPU)
         if wire_kernel is None:
@@ -250,6 +255,30 @@ class StepEngine:
             k: torch.as_tensor(v).to(self.device, non_blocking=True)
             for k, v in partition_batch.items()
         }
+
+    def _flat_batch(
+        self, partition_batch: dict, a: np.ndarray, support: np.ndarray | None = None,
+    ) -> dict[str, np.ndarray]:
+        """HOST-side pack: partition-major (k, mb, ...) -> the flat coded
+        batch (m·n_slots·mb, ...) in slot-major order, with decode and
+        encode folded into per-sequence weights, in numpy.  The
+        ``host_pack=True`` baseline the device pack is held against."""
+        plan = self.codec.plan
+        idx = plan.slot_pids.reshape(-1)  # (m*n_slots,)
+        out = {}
+        mb = None
+        for key, arr in partition_batch.items():
+            arr = arr.cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+            mb = arr.shape[1]
+            out[key] = arr[idx].reshape((-1,) + arr.shape[2:])
+        w = slot_weights(plan, a, support)  # (m, n_slots), includes the 1/k
+        out["weight"] = (np.repeat(w.reshape(-1), mb) / mb).astype(np.float32)
+        return out
+
+    def _host_batch(self, partition_batch: dict, a, support) -> dict[str, torch.Tensor]:
+        """:meth:`_flat_batch` uploaded, one tensor a key."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in self._flat_batch(partition_batch, a, support).items()}
 
     def _device_batch(self, pbatch: dict, a, support) -> dict[str, torch.Tensor]:
         """On-device pack + slot weights: the flat coded batch."""
@@ -671,6 +700,8 @@ class StepEngine:
         the process-group path every rank of the world calls it together,
         rank 0's ``a`` is used, and a rank outside the group gets None."""
         a, support = self._split_decode(a)
+        if self.backend == "fused" and self.host_pack:
+            return self._value_and_grad(params, self._host_batch(partition_batch, a, support))[1]
         pbatch = self._to_device(partition_batch)
         if self.group is not None:
             # every rank of the world; None outside the group
@@ -696,7 +727,9 @@ class StepEngine:
         slot weights, before the update.
 
         Phase spans, with tracing on: ``phase.upload`` and ``phase.fused``
-        (forward, backward and apply) on the fused backend; the gradients
+        (forward, backward and apply) on the fused backend, or with
+        ``host_pack`` ``phase.pack+upload`` (on the host) and
+        ``phase.fused``; the gradients
         (``phase.pack+encode+wire+decode`` on spmd, ``phase.gradients`` on
         reference), ``phase.loss`` and ``phase.apply`` on the others.  The
         last span of a step closes after a device synchronize."""
@@ -704,10 +737,18 @@ class StepEngine:
         traced = tr.enabled
         t0 = tr.clock() if traced else 0.0
         a_vec, support = self._split_decode(a)
-        pbatch = self._to_device(partition_batch)
+        host_pack = self.backend == "fused" and self.host_pack
+        pbatch = None if host_pack else self._to_device(partition_batch)
         if self.group is not None:
             return self._group_step(state, pbatch, a_vec, support)
-        if self.backend == "fused":
+        if host_pack:
+            batch = self._host_batch(partition_batch, a_vec, support)
+            if traced:
+                t1 = tr.clock()
+                tr.span_at("phase.pack+upload", t0, t1, clock="wall", where="host")
+            loss, grads = self._value_and_grad(state.params, batch)
+            del batch
+        elif self.backend == "fused":
             batch = self._device_batch(pbatch, a_vec, support)
             if traced:
                 t1 = tr.clock()
@@ -734,7 +775,10 @@ class StepEngine:
         del grads
         if traced:
             self._sync()
-            if self.backend == "fused":
+            if host_pack:
+                tr.span_at("phase.fused", t1, tr.clock(), clock="wall",
+                           phases="fwd+bwd+decode+apply")
+            elif self.backend == "fused":
                 tr.span_at("phase.fused", t1, tr.clock(), clock="wall",
                            phases="pack+encode+decode+apply")
             else:

@@ -21,6 +21,14 @@
   several), the op counter one op per eager kernel; on this cell the port
   counts 4.3 % fewer (157,264,935 against 164,405,024: a gap of -0.0434
   when this test was written), the matmuls being the same.
+- The decode cells whose KV cache is sharded on the sequence, which DTensor
+  alone could not run (chatglm3-6b × decode_32k and mixtral-8x7b ×
+  long_500k on 16×16, jamba-1.5-large-398b × long_500k on 2×16×16), each
+  run to a row in a process of their own, all three at once: the row's
+  per-rank state bytes equal JAX's, and the softmax's reduction across the
+  sequence shards is counted as all-reduce bytes.  On plain tensors the
+  per-shard decode (``attention._decode_shard`` over one shard) equals
+  ``attention_decode``, whose own path is the one it always was.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 300
+DECODE_TIMEOUT_S = 900  # jamba's cell alone takes about 85 s on one CPU thread
+REPAIRED = [("chatglm3-6b", "decode_32k", "single"), ("mixtral-8x7b", "long_500k", "single"),
+            ("jamba-1.5-large-398b", "long_500k", "multi")]
 SMALL = dict(B=8, S=32, mesh=(4, 2))
 PROBE_KEYS = ["f32[4,32,4096,4096]", "bf16[8,512,4096]", "f32[2,4096,512]", "f32[4096,4096]",
               "bf16[3,4096,1000]", "s32[4096]", "pred[16,4096,4096]", "f32[7,1536,4096]"]
@@ -228,6 +239,70 @@ def test_input_specs_and_state_bytes_equal_jax(jax_side, mesh):
         jax_step = 4 if SHAPES[shape_name].kind == "train" else 0
         assert td.state_bytes(arch, shape_name, sizes) == want["state"] - jax_step, \
             (arch, shape_name)
+
+
+@pytest.fixture(scope="module")
+def repaired_rows(tmp_path_factory):
+    out = tmp_path_factory.mktemp("decode")
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+         cell[1], "--mesh", cell[2], "--out", str(out)],
+        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in REPAIRED}
+    logs = {}
+    try:
+        for cell, proc in procs.items():
+            logs[cell] = proc.communicate(timeout=DECODE_TIMEOUT_S)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rows = {}
+    for (arch, shape, mesh), proc in procs.items():
+        assert proc.returncode == 0, logs[(arch, shape, mesh)][-3000:]
+        rows[(arch, shape, mesh)] = json.loads(
+            (out / f"{arch}__{shape}__{mesh}.json").read_text())
+    return rows
+
+
+@pytest.mark.parametrize("cell", REPAIRED, ids=["|".join(c) for c in REPAIRED])
+def test_sharded_kv_decode_cell_runs_to_a_row(jax_side, repaired_rows, cell):
+    row = repaired_rows[cell]
+    assert row["state_bytes_per_chip"] == jax_side["cells"]["|".join(cell)]["state"]
+    assert row["coll_breakdown"]["all-reduce"] > 0
+    assert row["t_collective_s"] > 0 and row["bottleneck"] in ("compute", "memory", "collective")
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("pos_kind", ["scalar", "rows", "past_end"])
+def test_one_shard_decode_equals_attention_decode(window, pos_kind):
+    import torch
+
+    from repro_torch.models import attention
+
+    r = __import__("numpy").random.default_rng(0)
+    B, S_c, K, G, hd, d = 3, 8, 2, 2, 8, 16
+    t = lambda *shape: torch.from_numpy(r.normal(size=shape).astype("float32"))  # noqa: E731
+    params = {"wq": t(d, K * G * hd), "wk": t(d, K * hd), "wv": t(d, K * hd),
+              "wo": t(K * G * hd, d)}
+    x = t(B, 1, d)
+    cache = {"k": t(B, S_c, K, hd), "v": t(B, S_c, K, hd)}
+    pos = {"scalar": torch.tensor(5), "rows": torch.tensor([1, 7, 4]),
+           "past_end": torch.tensor([3, 9, 12])}[pos_kind]
+    kw = dict(n_heads=K * G, n_kv=K, head_dim=hd, rotary_dim=hd, rope_theta=1e4, window=window)
+    want_cache = {k: v.clone() for k, v in cache.items()}
+    want, _ = attention.attention_decode(params, x, want_cache, pos, **kw)
+    q, k, v = attention._project_qkv(params, x, K * G, K, hd)
+    posb = pos[:, None] if pos.dim() else pos.expand(B, 1)
+    q = attention.apply_rope(q, posb, rotary_dim=hd, theta=1e4)
+    k = attention.apply_rope(k, posb, rotary_dim=hd, theta=1e4)
+    qh = q.reshape(B, 1, K, G, hd) * hd**-0.5
+    got = attention._decode_shard(qh, k, v, cache["k"], cache["v"], pos, start=0, S_c=S_c,
+                                  window=window, reduce=lambda z, op: z) @ params["wo"]
+    for key in cache:
+        assert torch.equal(cache[key], want_cache[key]), key
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_small_dry_run_flops_match_jax(jax_side, tmp_path):

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions and the
 wire format's bit oracle, on the card: coded_reduce, the int8 wire encode
 and decode, the SSD scan (with its autograd Function) and flash attention;
-and a reduced serving run whose prefill launches the kernels; and two
+and a reduced serving run whose prefill launches the kernels; every
+launch shape of coded_reduce and ``impl="best"``'s tuned one bit-equal to
+the default launch; the engine's ``host_pack`` on the card; and two
 ``torch.distributed`` ranks sharing the card over gloo, whose decoded
 gradient is held to the single-process spmd path's (the ranks are
 subprocesses of this file: ``python tests/test_torch_gpu.py OUT_DIR``).
@@ -63,6 +65,87 @@ def test_cuda_nan_weight_poisons(cuda_device):
     g = torch.ones(3, 4096, device=cuda_device)
     w = torch.tensor([0.0, float("nan"), 1.0], device=cuda_device)
     assert torch.isnan(coded_reduce(g, w)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["f32", "bf16->f32", "int8->f32"])
+@pytest.mark.parametrize("D,offset", [(1_000_003, 0), (1 << 20, 0), (1 << 20, 1), (77, 0)])
+def test_cuda_every_launch_shape_bit_equal_to_the_default(cuda_device, case, D, offset):
+    """The launch shape moves no value: each column is summed by one thread
+    in row order, so every (max_blocks, threads) gives the default's bits,
+    also where the block cap makes the grid-stride loop turn (ragged D,
+    VEC = 1), at a base 4 bytes off 16-byte alignment and at a tiny D."""
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels.coded_reduce import BLOCK_CAPS, THREADS
+
+    P = 5
+    r = np.random.default_rng(D + offset)
+    if case == "int8->f32":
+        buf = torch.from_numpy(r.integers(-127, 128, size=(P * D + offset,)).astype(np.int8))
+    else:
+        buf = torch.from_numpy(r.normal(size=(P * D + offset,)).astype(np.float32))
+        buf = buf.to(torch.float32 if case == "f32" else torch.bfloat16)
+    g = buf.to(cuda_device)[offset:].view(P, D)
+    w = torch.from_numpy(r.normal(size=(P,)).astype(np.float32)).to(cuda_device)
+    want = coded_reduce(g, w, torch.float32)
+    for threads in THREADS:
+        for blocks in BLOCK_CAPS:
+            got = coded_reduce(g, w, torch.float32, launch=(blocks, threads))
+            assert torch.equal(got, want), (blocks, threads)
+    before = (coded_reduce.launches, coded_reduce.shaped_launches)
+    got = ops.coded_reduce(g, w, impl="best", out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    pick = autotune.best_launch(P, D, cuda_device, g.dtype)
+    assert pick[1] in THREADS and pick[0] in BLOCK_CAPS
+    assert coded_reduce.shaped_launches > before[1]
+    assert coded_reduce.launches - before[0] == coded_reduce.shaped_launches - before[1]
+
+
+@pytest.mark.gpu
+def test_cuda_best_reduce_schedule_probes_the_card(cuda_device):
+    from repro_torch.kernels import autotune
+
+    choice = autotune.best_reduce_schedule(6, 1 << 16, cuda_device)
+    key = ("reduce_schedule", "cuda", torch.cuda.current_device(), 6, 1 << 16)
+    assert choice in autotune.PROBE_US[key] and set(autotune.PROBE_US[key]) == set(
+        autotune.SCHEDULES)
+    g = torch.randn(6, 1 << 16, device=cuda_device)
+    w = torch.randn(6, device=cuda_device)
+    torch.testing.assert_close(autotune.library_reduce(g, w), coded_reduce_torch(g, w),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_host_pack_step_equals_device_pack(cuda_device):
+    """``StepEngine(host_pack=True)`` on the card: the flat batch uploaded
+    whole gives the device pack's loss, grad norm and parameters (rtol 1e-6)."""
+    from repro_torch.configs import CodingConfig, TrainConfig, get_config
+    from repro_torch.core.codec import Codec
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adam import adamw_init
+    from repro_torch.train.engine import StepEngine, TrainerState
+
+    cfg = get_config("smollm-360m").reduced()
+    model = build_model(cfg)
+    codec = Codec.from_config(CodingConfig(scheme="heter_aware", s=1), m=4, rng=1)
+    data = SyntheticData(cfg, k=codec.k, part_mb=2, seq_len=16)
+    res = {}
+    for host_pack in (True, False):
+        eng = StepEngine(model, TrainConfig(), codec, device=cuda_device, host_pack=host_pack)
+        params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+        state = TrainerState(params, adamw_init(params), 0)
+        mets = []
+        for i in range(2):
+            state, met = eng.step(state, data.batch(i), codec.decode_outcome([0, 2, 3]))
+            mets.append(met)
+        res[host_pack] = (mets, state.params)
+    for a, b in zip(res[True][0], res[False][0]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-6)
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-6)
+    for k, v in res[True][1].items():
+        torch.testing.assert_close(v, res[False][1][k], rtol=1e-6, atol=1e-6)
 
 
 def _poison_inputs(case, D, dev):

@@ -22,6 +22,14 @@ training step across processes against the single-process one.
   are held at rtol 1e-5 where the gradient is past 1e-4 of its leaf's
   largest; where it is near zero the first step's m/sqrt(v) is the sign of
   noise, and the two may differ by up to 2·lr.
+- In the same world, three decode steps over a KV cache placed by the dry
+  run's ``_cache_spec`` (the sequence over ``model``, or over ``data`` and
+  ``model`` when the batch does not divide): the reduced llama3.2-1b and,
+  through a wrapped 16-row ring, the reduced mixtral-8x7b.  The logits and
+  the caches equal the single-process decode's at f32 rtol 1e-5 (the new
+  rows come out of the tensor-parallel projections), and every cache keeps
+  its placements (the sequence-sharded softmax of
+  ``models/sharding.py::on_cache_shards``).
 """
 
 from __future__ import annotations
@@ -44,6 +52,12 @@ SCENARIOS = {  # name: (arch, layout, accum_steps)
     "moonshot_tp": ("moonshot-v1-16b-a3b", "tp", 2),
     "mamba2_tp": ("mamba2-370m", "tp", 1),
 }
+DECODES = {  # name: (arch, batch, cache rows, first position)
+    "llama_seq_model": ("llama3.2-1b", 4, 16, 5),
+    "llama_seq_data_model": ("llama3.2-1b", 1, 16, 9),
+    "mixtral_ring": ("mixtral-8x7b", 2, 64, 14),
+}
+DECODE_STEPS = 3
 TC = dict(lr=3e-3, warmup_steps=2, total_steps=10)
 STEP = 1  # lr 1.5e-3 (step 0 of the warmup has lr 0)
 
@@ -87,6 +101,62 @@ def _run_step(arch: str, accum: int, place=None, mesh=None):
 
     return ({"loss": float(full(met["loss"])), "grad_norm": float(full(met["grad_norm"]))},
             {k: full(v) for k, v in seen.items()}, {k: full(v) for k, v in params.items()})
+
+
+def _run_decode(name: str, mesh=None):
+    """DECODE_STEPS decode steps of one DECODES case from a random cache;
+    returns (logits (steps, B, V), {cache leaf: full cache}, {cache leaf:
+    placements}).  With a mesh the params are placed by ``param_specs``,
+    the tokens over ``data`` where they divide and the cache by the dry
+    run's ``_cache_spec``, and the step runs as the dry run runs it."""
+    import math
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as td
+    from repro_torch.models.lm import LM, build_model
+    from repro_torch.models.sharding import distribute
+
+    arch, B, S_c, pos0 = DECODES[name]
+    cfg = get_config(arch).reduced()
+    tm = build_model(cfg, attn_impl="torch")
+    params = tm.init(torch.Generator().manual_seed(0), "cpu")
+    r = np.random.default_rng(1)
+    cache = {k: torch.from_numpy(r.normal(size=shp).astype(np.float32)).to(dt)
+             for k, (shp, dt) in tm.cache_shapes(B, S_c).items()}
+    tokens = torch.from_numpy(r.integers(0, cfg.vocab, (DECODE_STEPS, B, 1)).astype(np.int32))
+    pos = torch.tensor(pos0, dtype=torch.int32)
+    step = tm.decode_step
+    if mesh is not None:
+        sizes = {"data": 2, "model": 2}
+        specs = tm.param_specs("model", 2)
+        params = {k: distribute(v, specs[k], mesh) for k, v in params.items()}
+        cache = {k: distribute(v, td._cache_spec(k.rsplit(".", 1)[1], tuple(v.shape), sizes,
+                                                  ("data",), 2), mesh)
+                 for k, v in cache.items()}
+        pos = distribute(pos, (), mesh)
+        tokens = [distribute(t, ("data",) if B % 2 == 0 else (), mesh) for t in tokens]
+
+        def step(p, t, c):
+            with implicit_replication(), torch.no_grad():
+                return LM.decode_step.__wrapped__(tm, p, t, c)
+    before = {k: tuple(v.placements) for k, v in cache.items() if hasattr(v, "placements")}
+    cache = {**cache, "pos": pos}
+    logits = []
+    for t in tokens:
+        out, cache = step(params, t, cache)
+        logits.append(out)
+
+    def full(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).float().numpy()
+
+    placed = {k: [str(p) for p in v.placements] for k, v in cache.items()
+              if k != "pos" and hasattr(v, "placements")}
+    assert all(tuple(cache[k].placements) == before[k] for k in before), placed
+    assert math.isclose(float(full(cache["pos"])), pos0 + DECODE_STEPS)
+    return (np.stack([full(x) for x in logits]),
+            {k: full(v) for k, v in cache.items() if k != "pos"}, placed)
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +204,12 @@ def _rank_main(out_dir: str) -> None:
         meta[f"{name}/metrics"] = met
         arrays |= {f"{name}/grad/{k}": v for k, v in grads.items()}
         arrays |= {f"{name}/param/{k}": v for k, v in params.items()}
+    for name in DECODES:
+        with activation_axes(("data",), 2):
+            logits, caches, placed = _run_decode(name, mesh)
+        arrays[f"{name}/logits"] = logits
+        arrays |= {f"{name}/cache/{k}": v for k, v in caches.items()}
+        meta[f"{name}/cache_placements"] = placed
     np.savez(Path(out_dir) / f"rank{rank}.npz", **arrays)
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(meta))
     dist.destroy_process_group()
@@ -254,6 +330,21 @@ def test_sharded_step_equals_single_process(rank_run, name):
         for k in grads:
             np.testing.assert_array_equal(arrays[f"{name}/param/{k}"],
                                           rank_run[0][0][f"{name}/param/{k}"])
+
+
+@pytest.mark.parametrize("name", list(DECODES))
+def test_sharded_decode_equals_single_process(rank_run, name):
+    logits, caches, _ = _run_decode(name)
+    B = DECODES[name][1]
+    seq = "S(1)" if B % 2 == 0 else "S(2)"  # a (n_rep, B, S_c, K, hd) leaf
+    for arrays, meta in rank_run:
+        np.testing.assert_allclose(arrays[f"{name}/logits"], logits, rtol=1e-5,
+                                   atol=1e-5 * np.abs(logits).max())
+        for k, c in caches.items():
+            np.testing.assert_allclose(arrays[f"{name}/cache/{k}"], c, rtol=1e-5,
+                                       atol=1e-5 * np.abs(c).max(), err_msg=k)
+        placed = meta[f"{name}/cache_placements"]
+        assert placed and all(p[-1] == "S(2)" and p[0] == seq for p in placed.values()), placed
 
 
 if __name__ == "__main__":

@@ -301,6 +301,30 @@ def test_main_path_never_loads_jax_or_repro():
         "repro_torch.train.serve.LMServer(vlm).generate(\n"
         "    vp, {'tokens': np.ones((2, 5), np.int32),\n"
         "         'patches': np.zeros((2, 8, 128), np.float32)}, 3, cache_len=16)\n"
+        "from repro_torch.configs import CodingConfig, TrainConfig\n"
+        "from repro_torch.core.codec import Codec\n"
+        "from repro_torch.data.pipeline import SyntheticData\n"
+        "from repro_torch.kernels import autotune, ops\n"
+        "from repro_torch.optim.adam import adamw_init\n"
+        "from repro_torch.train.engine import StepEngine, TrainerState\n"
+        "cfg = get_config('smollm-360m').reduced()\n"
+        "model = build_model(cfg)\n"
+        "codec = Codec.from_config(CodingConfig(scheme='heter_aware', s=1), m=4, rng=1)\n"
+        "eng = StepEngine(model, TrainConfig(), codec, device='cpu', host_pack=True)\n"
+        "p = model.init(torch.Generator().manual_seed(0), 'cpu')\n"
+        "eng.step(TrainerState(p, adamw_init(p), 0), SyntheticData(cfg, k=codec.k, part_mb=1,\n"
+        "         seq_len=8).batch(0), codec.decode_outcome([0, 1, 2]))\n"
+        "ops.coded_reduce(torch.ones(3, 64), torch.ones(3), impl='best')\n"
+        "assert autotune.best_launch(3, 64, 'cpu') is None\n"
+        "import ast, glob, runpy\n"
+        "for path in sorted(glob.glob('examples/torch/*.py')):\n"
+        "    for node in ast.walk(ast.parse(open(path).read())):\n"
+        "        if isinstance(node, ast.Import):\n"
+        "            [importlib.import_module(a.name) for a in node.names]\n"
+        "        elif isinstance(node, ast.ImportFrom):\n"
+        "            importlib.import_module(node.module)\n"
+        "sys.argv = ['quickstart.py', '--device', 'cpu']\n"
+        "runpy.run_path('examples/torch/quickstart.py', run_name='__main__')\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('LOADED', bad)\n"
         "sys.exit(1 if bad else 0)\n"
