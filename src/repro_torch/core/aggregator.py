@@ -42,6 +42,7 @@ from repro_torch.kernels.coded_reduce import coded_reduce
 from repro_torch.kernels.ref import dequantize, quantize_int8
 from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
 from repro_torch.launch.mesh import CodedGroup, all_gather_flat, all_reduce_sum_
+from repro_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
 
 __all__ = [
     "CodedPlan",
@@ -341,6 +342,7 @@ def faithful_spmd_step(
     compress: bool = False,
     wire_kernel: bool = False,
     wire: dict | None = None,
+    tracer: NullTracer | Tracer = NULL_TRACER,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Per-worker flat encode and the master decode, on one device.
 
@@ -368,8 +370,13 @@ def faithful_spmd_step(
     ``wire`` dict receives the int8 wire the decode read, ``q`` (m, D) and
     ``ws`` (m,), for inspection.
 
+    With ``tracer`` on, each (worker, slot) gradient pass and its ravel is
+    one host span ``phase.spmd.slot`` (``worker``, ``slot``), the host phase
+    of the model's device regions launched in it.
+
     Returns ``(decoded f32 (D,), err)``."""
     view = view if view is not None else FlatView(params)
+    traced = tracer.enabled
     m, n_slots = coeff.shape
     dev = coeff.device
     if compress and (err is None or tuple(err.shape) != (m, view.size)):
@@ -384,9 +391,15 @@ def faithful_spmd_step(
         coded = torch.empty((m, view.size), dtype=torch.float32, device=dev)
     for w in range(m):
         for s in range(n_slots):
+            if traced:
+                t0 = tracer.clock()
+                tracer.phase = "phase.spmd.slot"
             _, g = grad(params, {key: x[w, s] for key, x in slot_batch.items()})
             view.write(gstack[s], g)
             del g
+            if traced:
+                tracer.span_at("phase.spmd.slot", t0, tracer.clock(), clock="wall", worker=w,
+                               slot=s)
         cw = coeff[w].contiguous()
         if fused_wire:
             _, scale, _ = coded_encode_int8(gstack, cw, err[w], out_err=err[w], out_q=q_all[w])

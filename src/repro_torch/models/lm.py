@@ -26,6 +26,15 @@ counterpart of JAX's ``jax.checkpoint`` of its scan body: only the
 repeat's input is kept, and its layers run again in the backward.  Serving
 (prefill, decode) is never checkpointed.
 
+Device regions: with a tracer installed (``LM.tracer``, the trainer's) the
+training path records ``device.embed``, per layer ``device.mixer`` (from
+the mixer's norm through its output projection; ``kind`` ``attn`` or
+``ssd`` with the shape that sets its work) and ``device.mlp``, and
+``device.head_loss`` (final norm, logits, log-softmax, NLL and the
+weighted sum), each in its forward, recompute and backward pass
+(:meth:`repro_torch.obs.trace.Tracer.device_span`).  Tracing off adds no
+autograd node and the gradients are bit-equal either way.
+
 Sharding: :meth:`LM.param_specs` and :meth:`LM.fsdp_specs` give each
 parameter's layout as a tuple of mesh-axis names a dim (JAX's
 ``PartitionSpec``), which ``models/sharding.py`` turns into DTensor
@@ -59,6 +68,7 @@ from repro_torch.models.moe import init_moe, moe_apply, moe_apply_dense
 from repro_torch.models.sharding import (embedding, gather_data_shards, reduce_partial,
                                          shard_batch, unshard_dim)
 from repro_torch.models.ssm import init_mamba, mamba_decode, mamba_forward
+from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER
 
 Params = dict[str, torch.Tensor]
 Cache = dict[str, torch.Tensor]
@@ -161,6 +171,11 @@ def params_to_numpy(params: Params):
     return _unflatten(flat)
 
 
+def _sub(bp: dict[str, torch.Tensor], prefix: str) -> dict[str, torch.Tensor]:
+    """The leaves of a layer under ``prefix``, named below it."""
+    return {k[len(prefix):]: v for k, v in bp.items() if k.startswith(prefix)}
+
+
 class LM:
     """The LM over explicit parameter dicts, every family.
 
@@ -181,6 +196,7 @@ class LM:
         self.dtype = _DTYPES[cfg.dtype]
         self.ssd_impl = ssd_impl
         self.attn_impl = attn_impl
+        self.tracer = NULL_TRACER  # the trainer installs its own
 
     # -- init ----------------------------------------------------------------
 
@@ -245,40 +261,25 @@ class LM:
     def _apply_block(
         self, spec: LayerSpec, bp: dict[str, torch.Tensor], x: torch.Tensor,
         positions: torch.Tensor, mode: str = "train", cache: dict | None = None,
-        pos: torch.Tensor | None = None, cache_len: int | None = None,
+        pos: torch.Tensor | None = None, cache_len: int | None = None, layer: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor | None, dict | None]:
-        """One layer in ``mode`` "train", "prefill" (also returns the
-        layer's decode cache, padded to ``cache_len``) or "decode" (one
-        token at ``pos`` against ``cache``).  Returns (x, the MoE layer's
-        load-balance loss averaged over batch rows or None, the layer's
-        cache or None)."""
+        """One layer (``layer``, its index in the model) in ``mode``
+        "train", "prefill" (also returns the layer's decode cache, padded
+        to ``cache_len``) or "decode" (one token at ``pos`` against
+        ``cache``).  Returns (x, the MoE layer's load-balance loss averaged
+        over batch rows or None, the layer's cache or None)."""
         cfg = self.cfg
-
-        def sub(prefix):
-            return {k[len(prefix):]: v for k, v in bp.items() if k.startswith(prefix)}
-
-        h = rms_norm(x, bp["mixer_norm.scale"], cfg.norm_eps)
-        if spec.mixer == "attn":
-            kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-                      rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta, window=cfg.window)
-            if mode == "decode":
-                out, new_cache = attention_decode(sub("attn."), h, cache, pos, **kw)
-            else:
-                prefill = mode == "prefill"
-                out, new_cache = attention_forward(
-                    sub("attn."), h, positions, causal=cfg.causal, return_cache=prefill,
-                    cache_len=cache_len, flash=prefill, impl=self.attn_impl, **kw,
-                )
-        else:
-            kw = dict(d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
-                      n_groups=cfg.ssm_groups)
-            if mode == "decode":
-                out, new_cache = mamba_decode(sub("mamba."), h, cache, **kw)
-            else:
-                out, new_cache = mamba_forward(
-                    sub("mamba."), h, chunk=cfg.ssm_chunk, impl=self.ssd_impl,
-                    return_cache=(mode == "prefill"), **kw,
-                )
+        traced = self.tracer.enabled and mode == "train"
+        region = self._mixer_span(spec, x, layer) if traced else NULL_SPAN
+        with region:
+            # the input marker takes the residual's branch too: on the norm's
+            # branch alone it would sum the norm's gradients before the
+            # residual's and change their bits where x has three consumers
+            # (f32, whose .float() is x itself); the residual's arrives first,
+            # so the backward span closes at the same point
+            x = region.input(x)
+            out, new_cache = self._mixer(spec, bp, x, positions, mode, cache, pos, cache_len)
+            out = region.output(out)
         # a row-parallel output (wo, out_proj, w_down over 'model') is a
         # pending sum: reduced here, as Megatron's all-reduce, so the norm
         # and the next projections see whole activations (no-op unsharded)
@@ -286,16 +287,76 @@ class LM:
         aux = None
         if spec.mlp != "none":
             x = shard_batch(x)  # pins the MLP input's gradient (see sharding.py)
-            h = rms_norm(x, bp["mlp_norm.scale"], cfg.norm_eps)
-            if spec.mlp == "moe":
-                moe_fn = moe_apply_dense if cfg.moe_dispatch == "dense" else moe_apply
-                y, a = moe_fn(sub("moe."), h, top_k=cfg.top_k,
-                              capacity_factor=cfg.capacity_factor, act=cfg.act)
-                aux = a.mean()
-            else:
-                y = mlp(sub("mlp."), h, cfg.act)
+            region = self._mlp_span(spec, x, layer) if traced else NULL_SPAN
+            with region:
+                x = region.input(x)
+                h = rms_norm(x, bp["mlp_norm.scale"], cfg.norm_eps)
+                if spec.mlp == "moe":
+                    moe_fn = moe_apply_dense if cfg.moe_dispatch == "dense" else moe_apply
+                    y, a = moe_fn(_sub(bp, "moe."), h, top_k=cfg.top_k,
+                                  capacity_factor=cfg.capacity_factor, act=cfg.act)
+                    aux = a.mean()
+                else:
+                    y = mlp(_sub(bp, "mlp."), h, cfg.act)
+                y = region.output(y)
             x = x + reduce_partial(y)
         return x, aux, new_cache
+
+    def _mixer(self, spec: LayerSpec, bp: dict[str, torch.Tensor], x: torch.Tensor,
+               positions: torch.Tensor, mode: str, cache: dict | None, pos: torch.Tensor | None,
+               cache_len: int | None):
+        """The mixer's norm, attention or mamba2 block and output projection:
+        (out, the layer's cache or None)."""
+        cfg = self.cfg
+        h = rms_norm(x, bp["mixer_norm.scale"], cfg.norm_eps)
+        if spec.mixer == "attn":
+            kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                      rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta, window=cfg.window)
+            if mode == "decode":
+                out, new_cache = attention_decode(_sub(bp, "attn."), h, cache, pos, **kw)
+            else:
+                prefill = mode == "prefill"
+                out, new_cache = attention_forward(
+                    _sub(bp, "attn."), h, positions, causal=cfg.causal, return_cache=prefill,
+                    cache_len=cache_len, flash=prefill, impl=self.attn_impl, **kw,
+                )
+        else:
+            kw = dict(d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+                      n_groups=cfg.ssm_groups)
+            if mode == "decode":
+                out, new_cache = mamba_decode(_sub(bp, "mamba."), h, cache, **kw)
+            else:
+                out, new_cache = mamba_forward(
+                    _sub(bp, "mamba."), h, chunk=cfg.ssm_chunk, impl=self.ssd_impl,
+                    return_cache=(mode == "prefill"), **kw,
+                )
+        return out, new_cache
+
+    # -- device regions of a traced training step ------------------------------
+
+    def _mixer_span(self, spec: LayerSpec, x: torch.Tensor, layer: int):
+        """``device.mixer`` with the shape that sets its work: attention's
+        (B, S, d_model, heads, kv heads, head_dim, window), or the SSD's
+        ``ssd_scan`` call (B, S, H, P, G, N, its chunk and the bytes of a
+        B/C element; the scan pads S to a multiple of the chunk)."""
+        cfg = self.cfg
+        B, S = int(x.shape[0]), int(x.shape[1])
+        if spec.mixer == "attn":
+            shape = dict(kind="attn", B=B, S=S, d_model=cfg.d_model, heads=cfg.n_heads,
+                         kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                         window=cfg.window)
+        else:
+            shape = dict(kind="ssd", B=B, S=S, H=cfg.ssm_heads,
+                         P=cfg.ssm_d_inner // cfg.ssm_heads, G=cfg.ssm_groups, N=cfg.ssm_state,
+                         chunk=cfg.ssm_chunk, bc_bytes=x.element_size())
+        return self.tracer.device_span("device.mixer", device=x.device, layer=layer, **shape)
+
+    def _mlp_span(self, spec: LayerSpec, x: torch.Tensor, layer: int):
+        cfg = self.cfg
+        d_ff = cfg.expert_d_ff if spec.mlp == "moe" else cfg.d_ff
+        return self.tracer.device_span("device.mlp", device=x.device, layer=layer, kind=spec.mlp,
+                                       B=int(x.shape[0]), S=int(x.shape[1]),
+                                       d_model=cfg.d_model, d_ff=d_ff)
 
     def _layers(self, params: Params) -> list[dict[str, torch.Tensor]]:
         """Per layer of the period, its stacked leaves under their names
@@ -307,13 +368,15 @@ class LM:
                         if n.startswith(prefix)})
         return out
 
-    def _embed(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+    def _embed(self, params: Params, batch: dict[str, torch.Tensor],
+               mark=lambda w: w) -> torch.Tensor:
         """(B, S, d): audio frames in the model dtype; token embeddings,
-        with a vision prompt's patch embeddings ahead of them."""
+        with a vision prompt's patch embeddings ahead of them.  ``mark``
+        takes the embedding table on its way into the lookup."""
         cfg = self.cfg
         if cfg.frontend == "audio":
             return batch["frames"].to(self.dtype)
-        tok = reduce_partial(embedding(batch["tokens"].long(), params["embed"]))
+        tok = reduce_partial(embedding(batch["tokens"].long(), mark(params["embed"])))
         if cfg.frontend == "vision":
             return torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
         return tok
@@ -327,9 +390,27 @@ class LM:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(logits (B, S_total, V) in the parameter dtype, the MoE
         load-balance loss summed over layers, f32 0-d)."""
-        cfg = self.cfg
         params = {k: gather_data_shards(v) for k, v in params.items()}  # FSDP's gather
-        x = self._embed(params, batch)
+        x, aux = self._trunk(params, batch)
+        x = rms_norm(x, params["final_norm.scale"], self.cfg.norm_eps)
+        return self._logits(params, x), aux
+
+    def _trunk(
+        self, params: Params, batch: dict[str, torch.Tensor]
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The embedding and every layer: (x before the final norm, the MoE
+        load-balance loss summed over layers)."""
+        cfg = self.cfg
+        tr = self.tracer
+        if tr.enabled:
+            lead = batch["frames" if cfg.frontend == "audio" else "tokens"].shape
+            region = tr.device_span("device.embed", device=params["final_norm.scale"].device,
+                                    B=int(lead[0]), S=int(lead[1]), d_model=cfg.d_model,
+                                    vocab=cfg.vocab)
+        else:
+            region = NULL_SPAN
+        with region:
+            x = region.output(self._embed(params, batch, region.input))
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # one unbind per stacked leaf: its backward stacks the per-layer
@@ -340,7 +421,8 @@ class LM:
             for j, layers in enumerate(blocks):
                 x = shard_batch(x)  # re-anchor the batch sharding each block
                 x, a, _ = self._apply_block(
-                    self.plan[j], {k: v[r] for k, v in layers.items()}, x, positions
+                    self.plan[j], {k: v[r] for k, v in layers.items()}, x, positions,
+                    layer=r * self.period + j,
                 )
                 if a is not None:
                     aux = aux + a
@@ -355,35 +437,49 @@ class LM:
                                     preserve_rng_state=False)
             else:
                 x, aux = repeat(x, aux, r)
-        x = shard_batch(x)  # pins the head's input gradient (see sharding.py)
-        x = rms_norm(x, params["final_norm.scale"], cfg.norm_eps)
-        return self._logits(params, x), aux
+        return shard_batch(x), aux  # pins the head's input gradient (see sharding.py)
 
     def seq_losses(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-sequence mean CE plus ``aux_coef`` x the MoE loss, shape (B,):
         next-token CE over the text span (a vision prompt's patch positions
         carry no labels); an encoder-only model's frame-level CE unshifted."""
-        cfg = self.cfg
-        logits, aux = self.forward(params, batch)
-        labels = batch["labels"]
-        if cfg.frontend == "vision":
-            logits = logits[:, cfg.n_patches:]
-        if not cfg.encoder_only:
-            logits, labels = logits[:, :-1], labels[:, 1:]
-        valid = labels >= 0
-        lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        # logp at each label: nll_loss picks the same values as a gather,
-        # and its backward is one op that DTensor shards by the batch rows
-        # (a gather's composite backward makes a zero tensor of the whole
-        # batch on every rank)
-        ll = -F.nll_loss(logp.flatten(0, -2), lab.flatten(), reduction="none").view(lab.shape)
-        ce = -(ll * valid).sum(-1) / valid.sum(-1).clamp(min=1)
-        return ce + cfg.aux_coef * aux
+        return self._losses(params, batch, None)
 
     def weighted_loss(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """Σ_b weight_b · seq_loss_b — the coded-DP training objective."""
-        return (self.seq_losses(params, batch) * batch["weight"]).sum()
+        return self._losses(params, batch, batch["weight"])
+
+    def _losses(self, params: Params, batch: dict[str, torch.Tensor],
+                weight: torch.Tensor | None) -> torch.Tensor:
+        """:meth:`seq_losses`, or with ``weight`` their weighted sum; the
+        head and the loss are the ``device.head_loss`` region."""
+        cfg = self.cfg
+        params = {k: gather_data_shards(v) for k, v in params.items()}  # FSDP's gather
+        x, aux = self._trunk(params, batch)
+        tr = self.tracer
+        region = tr.device_span("device.head_loss", device=x.device, B=int(x.shape[0]),
+                                S=int(x.shape[1]), d_model=cfg.d_model,
+                                vocab=cfg.vocab) if tr.enabled else NULL_SPAN
+        with region:
+            x = rms_norm(region.input(x), params["final_norm.scale"], cfg.norm_eps)
+            logits, labels = self._logits(params, x), batch["labels"]
+            if cfg.frontend == "vision":
+                logits = logits[:, cfg.n_patches:]
+            if not cfg.encoder_only:
+                logits, labels = logits[:, :-1], labels[:, 1:]
+            valid = labels >= 0
+            lab = torch.where(valid, labels, torch.zeros_like(labels)).long()
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            # logp at each label: nll_loss picks the same values as a gather,
+            # and its backward is one op that DTensor shards by the batch rows
+            # (a gather's composite backward makes a zero tensor of the whole
+            # batch on every rank)
+            ll = -F.nll_loss(logp.flatten(0, -2), lab.flatten(), reduction="none").view(lab.shape)
+            ce = -(ll * valid).sum(-1) / valid.sum(-1).clamp(min=1)
+            loss = ce + cfg.aux_coef * aux
+            if weight is not None:
+                loss = (loss * weight).sum()
+            return region.output(loss)
 
     # -- serving: prefill, decode and the slot cache ---------------------------
 

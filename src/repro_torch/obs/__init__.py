@@ -5,9 +5,10 @@ from a JSONL log."""
 
 from repro_torch.obs.stats import Summary, pct
 from repro_torch.obs.straggler import StragglerForensics, WorkerLedger
-from repro_torch.obs.trace import NULL_TRACER, NullTracer, Tracer, get_tracer, set_tracer
+from repro_torch.obs.trace import NULL_SPAN, NULL_TRACER, NullTracer, Tracer, get_tracer, set_tracer
 
 __all__ = [
+    "NULL_SPAN",
     "NULL_TRACER",
     "NullTracer",
     "StragglerForensics",

@@ -35,7 +35,11 @@ Phase spans: with a tracer installed (``engine.tracer``, the trainer's),
 each step's phases land on the wall-clock track, as in the JAX engine; the
 spmd backend's ``phase.spmd.grads`` closes after a device synchronize, so
 it holds the device time of the per-worker gradients, the encode and the
-decode.  Tracing off adds nothing to the step.
+decode.  The engine also tells the tracer the step and the host phase open
+while it launches the model (``tracer.step``, ``tracer.phase``), which the
+model's device regions carry; the synchronize that closes a traced step
+anchors those regions, and the next step places them on the wall clock
+while the device works.  Tracing off adds nothing to the step.
 
 The process-group path (``group=``).  Every rank of the world runs the
 control plane in lockstep and calls :meth:`StepEngine.step` (or
@@ -302,23 +306,55 @@ class StepEngine:
         coded sum (NaN/Inf anywhere in the decoded gradient — global_norm
         is finite iff every leaf is) must never touch params or optimizer
         moments, so a non-finite norm skips the in-place update and the
-        caller sees the skip in the returned grad norm."""
+        caller sees the skip in the returned grad norm.  Traced on the
+        device-pack fused path, it records the norm and its read
+        (``phase.grad_norm``) and the update's launch (``phase.apply``)."""
         tc = self.tc
+        tr = self.tracer
+        phases = tr.enabled and self.backend == "fused" and not self.host_pack
         lr = self._lr(step)
+        t0 = tr.clock() if phases else 0.0
         gnorm = float(global_norm(grads))
+        if phases:
+            t1 = tr.clock()
+            tr.span_at("phase.grad_norm", t0, t1, clock="wall")
         if np.isfinite(gnorm):
             params, opt = adamw_update(
                 params, grads, opt,
                 lr=lr, beta1=tc.beta1, beta2=tc.beta2, eps=tc.eps,
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
             )
+        if phases:
+            tr.span_at("phase.apply", t1, tr.clock(), clock="wall")
         return params, opt, gnorm, float(lr)
 
-    def _value_and_grad(self, params: Params, batch: dict) -> tuple[torch.Tensor, Params]:
+    def _row_counts(self, pbatch: dict, a, support) -> dict[str, int]:
+        """The fused pass's rows (m·n_slots·mb) and those with a nonzero
+        weight, from the host plan and the decode vector: exact integers,
+        with no read from the device."""
+        mb = int(next(iter(pbatch.values())).shape[1])
+        w = slot_weights(self.codec.plan, a, support)
+        return {"rows": int(w.size) * mb, "weighted_rows": int(np.count_nonzero(w)) * mb}
+
+    def _value_and_grad(self, params: Params, batch: dict,
+                        phases: bool = False) -> tuple[torch.Tensor, Params]:
+        """The weighted loss and its gradient; ``phases`` records the
+        forward's and the backward's launch as ``phase.forward`` and
+        ``phase.backward``."""
+        tr = self.tracer
         leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
         with torch.enable_grad():
+            if phases:
+                t0 = tr.clock()
+                tr.phase = "phase.forward"
             loss = self.model.weighted_loss(leaves, batch)
+            if phases:
+                t1 = tr.clock()
+                tr.span_at("phase.forward", t0, t1, clock="wall")
+                tr.phase = "phase.backward"
             grads = torch.autograd.grad(loss, list(leaves.values()))
+            if phases:
+                tr.span_at("phase.backward", t1, tr.clock(), clock="wall")
         return loss.detach(), dict(zip(params, grads))
 
     def reset_error_feedback(self) -> None:
@@ -613,7 +649,7 @@ class StepEngine:
             tr.span_at("phase.spmd.pack", t0, t1, clock="wall", where="host")
         flat, self._err = faithful_spmd_step(
             self._slot_loss, params, sb, coeff, a_dev, self._err, self._view,
-            compress=self.compress, wire_kernel=self.wire_kernel, wire=self.wire_out,
+            compress=self.compress, wire_kernel=self.wire_kernel, wire=self.wire_out, tracer=tr,
         )
         if traced:
             self._sync()
@@ -667,6 +703,7 @@ class StepEngine:
         if traced:
             t1 = tr.clock()
             tr.span_at("phase.spmd.pack", t0, t1, clock="wall", where="host")
+            tr.phase = "phase.spmd.grads"
         flat, self._err = group_spmd_step(
             self._slot_loss, params, sb, coeff, a_dev, self._err, self._view, self.group,
             compress=self.compress, wire_kernel=self.wire_kernel, wire=self.wire_out,
@@ -726,18 +763,26 @@ class StepEngine:
         (or DecodeOutcome).  ``loss`` is the weighted loss at the decoded
         slot weights, before the update.
 
-        Phase spans, with tracing on: ``phase.upload`` and ``phase.fused``
-        (forward, backward and apply) on the fused backend, or with
-        ``host_pack`` ``phase.pack+upload`` (on the host) and
-        ``phase.fused``; the gradients
-        (``phase.pack+encode+wire+decode`` on spmd, ``phase.gradients`` on
-        reference), ``phase.loss`` and ``phase.apply`` on the others.  The
-        last span of a step closes after a device synchronize."""
+        Phase spans, with tracing on: on the fused backend ``phase.upload``
+        (with the pass's ``rows`` and ``weighted_rows``) and ``phase.fused``
+        (forward, backward and apply), which holds ``phase.forward`` and
+        ``phase.backward`` (their launch), ``phase.loss_sync`` (the host
+        placing the last step's device regions, then waiting for the loss),
+        ``phase.grad_norm``, ``phase.apply`` (the AdamW launch) and
+        ``phase.sync``; with ``host_pack``
+        ``phase.pack+upload`` (on the host) and ``phase.fused``; the
+        gradients (``phase.pack+encode+wire+decode`` on spmd,
+        ``phase.gradients`` on reference), ``phase.loss`` and
+        ``phase.apply`` on the others.  The last span of a step closes after
+        a device synchronize."""
         tr = self.tracer
         traced = tr.enabled
         t0 = tr.clock() if traced else 0.0
+        if traced:
+            tr.step = int(state.step)
         a_vec, support = self._split_decode(a)
         host_pack = self.backend == "fused" and self.host_pack
+        fused = self.backend == "fused" and not host_pack
         pbatch = None if host_pack else self._to_device(partition_batch)
         if self.group is not None:
             return self._group_step(state, pbatch, a_vec, support)
@@ -746,43 +791,54 @@ class StepEngine:
             if traced:
                 t1 = tr.clock()
                 tr.span_at("phase.pack+upload", t0, t1, clock="wall", where="host")
+                tr.phase = "phase.fused"
             loss, grads = self._value_and_grad(state.params, batch)
             del batch
-        elif self.backend == "fused":
+        elif fused:
             batch = self._device_batch(pbatch, a_vec, support)
             if traced:
                 t1 = tr.clock()
                 tr.span_at("phase.upload", t0, t1, clock="wall",
-                           what="unique batch + decode vector + support mask")
-            loss, grads = self._value_and_grad(state.params, batch)
+                           what="unique batch + decode vector + support mask",
+                           **self._row_counts(pbatch, a_vec, support))
+            loss, grads = self._value_and_grad(state.params, batch, phases=traced)
             del batch
         else:
+            if traced:
+                tr.phase = "phase.gradients"
             grads = self.gradients(state.params, pbatch, a)
             if traced:
                 t1 = tr.clock()
                 name = ("phase.pack+encode+wire+decode" if self.backend == "spmd"
                         else "phase.gradients")
                 tr.span_at(name, t0, t1, clock="wall", backend=self.backend)
+                tr.phase = "phase.loss"
             with torch.no_grad():
                 loss = self.model.weighted_loss(
                     state.params, self._device_batch(pbatch, a_vec, support)
                 )
+        if traced:
+            tl = tr.clock()
+            tr.place_regions()  # the last step's, while the device works
         loss = float(loss)
-        if traced and self.backend != "fused":
+        if traced and fused:
+            tr.span_at("phase.loss_sync", tl, tr.clock(), clock="wall")
+        elif traced and self.backend != "fused":
             t2 = tr.clock()
             tr.span_at("phase.loss", t1, t2, clock="wall")
         params, opt, gnorm, lr = self._adamw(state.params, grads, state.opt, state.step)
         del grads
         if traced:
-            self._sync()
+            ts = tr.clock()
+            t_end = tr.sync_device(self.device)
             if host_pack:
-                tr.span_at("phase.fused", t1, tr.clock(), clock="wall",
+                tr.span_at("phase.fused", t1, t_end, clock="wall",
                            phases="fwd+bwd+decode+apply")
-            elif self.backend == "fused":
-                tr.span_at("phase.fused", t1, tr.clock(), clock="wall",
-                           phases="pack+encode+decode+apply")
+            elif fused:
+                tr.span_at("phase.sync", ts, t_end, clock="wall")
+                tr.span_at("phase.fused", t1, t_end, clock="wall", phases="fwd+bwd+apply")
             else:
-                tr.span_at("phase.apply", t2, tr.clock(), clock="wall")
+                tr.span_at("phase.apply", t2, t_end, clock="wall")
         new_state = TrainerState(params=params, opt=opt, step=state.step + 1)
         return new_state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
@@ -797,6 +853,8 @@ class StepEngine:
         tr = self.tracer
         traced = tr.enabled
         t0 = tr.clock() if traced else 0.0
+        if traced:
+            tr.step = int(state.step)
         self._group_prologue(state.params)
         if self._state_stale:
             self._replace_state(state)
@@ -811,6 +869,8 @@ class StepEngine:
                 tr.span_at("phase.pack+encode+wire+decode", t0, t1, clock="wall",
                            backend=self.backend)
             loss = np.nan
+            if traced:
+                tr.phase = "phase.loss"
             if self.group.rank == 0:  # the others take rank 0's
                 with torch.no_grad():
                     loss = float(self.model.weighted_loss(
@@ -821,8 +881,7 @@ class StepEngine:
             params, opt, gnorm, lr = self._adamw(params, grads, opt, state.step)
             del grads
             if traced:
-                self._sync()
-                tr.span_at("phase.apply", t2, tr.clock(), clock="wall")
+                tr.span_at("phase.apply", t2, tr.sync_device(self.device), clock="wall")
             metrics[:] = (loss, gnorm, lr)
         loss, gnorm, lr = (float(x) for x in broadcast_array(metrics, self.group))
         new_state = TrainerState(params=params, opt=opt, step=state.step + 1)

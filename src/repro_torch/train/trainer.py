@@ -139,6 +139,8 @@ class CodedTrainer:
         # observability: one tracer threaded through the whole stack
         self.tracer = trace if trace is not None else NULL_TRACER
         self.engine.tracer = self.tracer
+        if hasattr(model, "tracer"):  # the model's device regions (models/lm.py)
+            model.tracer = self.tracer
         self.elastic.tracer = self.tracer
         self.elastic.policy.tracer = self.tracer
         self._sim_now = 0.0  # accumulated simulated seconds (the sim clock)

@@ -3,7 +3,8 @@ wire format's bit oracle, on the card: coded_reduce, the int8 wire encode
 and decode, the SSD scan (with its autograd Function) and flash attention;
 and a reduced serving run whose prefill launches the kernels; every
 launch shape of coded_reduce and ``impl="best"``'s tuned one bit-equal to
-the default launch; the engine's ``host_pack`` on the card; and two
+the default launch; the engine's ``host_pack`` on the card; the model's
+device regions (CUDA events placed on the host clock); and two
 ``torch.distributed`` ranks sharing the card over gloo, whose decoded
 gradient is held to the single-process spmd path's (the ranks are
 subprocesses of this file: ``python tests/test_torch_gpu.py OUT_DIR``).
@@ -146,6 +147,51 @@ def test_cuda_host_pack_step_equals_device_pack(cuda_device):
         assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-6)
     for k, v in res[True][1].items():
         torch.testing.assert_close(v, res[False][1][k], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_device_regions_land_in_their_step(cuda_device):
+    """The model's device regions on the card under full remat: CUDA events
+    anchored at the step's closing synchronize, placed on the host clock, every region
+    in each of its passes, inside its step, one at a time (one stream), the
+    backward in reverse layer order; the losses equal an untraced run's."""
+    import dataclasses
+
+    from repro_torch.configs import CodingConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.models.lm import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.train.trainer import CodedTrainer
+
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), remat="full")
+    losses, params = {}, {}
+    for traced in (False, True):
+        tracer = Tracer() if traced else None
+        tr = CodedTrainer(build_model(cfg), CodingConfig(scheme="heter_aware", s=1),
+                          TrainConfig(), m=4, part_mb=2, device=cuda_device, trace=tracer)
+        data = SyntheticData(cfg, k=tr.k, part_mb=2, seq_len=64, seed=0)
+        state, losses[traced] = tr.init_state(0), []
+        for i in range(2):
+            state, met = tr.step(state, data.batch(i))
+            losses[traced].append(met["loss"])
+        params[traced] = state.params
+    assert losses[True] == losses[False]
+    for k, v in params[True].items():
+        torch.testing.assert_close(v, params[False][k], rtol=1e-5, atol=1e-6)
+    spans = tracer.records("span")
+    steps = {r["args"]["step"]: r for r in spans if r["name"] == "step"}
+    dev = [r for r in spans if r["name"].startswith("device.")]
+    assert {r["tid"] for r in dev} == {2}
+    for step, outer in steps.items():
+        mine = sorted((r for r in dev if r["args"]["step"] == step), key=lambda r: r["t0"])
+        passes = {(r["name"], r["args"]["pass"], r["args"].get("layer")) for r in mine}
+        assert len(mine) == len(passes) == 4 + 2 * 3 * cfg.n_layers
+        # the anchor's wake-up: a region may end a few microseconds after the clock read
+        assert all(outer["t0"] <= r["t0"] <= r["t1"] <= outer["t1"] + 1e-3 for r in mine)
+        assert all(a["t1"] <= b["t0"] + 1e-6 for a, b in zip(mine, mine[1:]))
+        bwd = [r["args"]["layer"] for r in mine
+               if r["name"] == "device.mixer" and r["args"]["pass"] == "bwd"]
+        assert bwd == sorted(bwd, reverse=True) and len(bwd) == cfg.n_layers
 
 
 def _poison_inputs(case, D, dev):
