@@ -225,6 +225,17 @@ SMOLLM_LAYERS = 32
 # kernels line's ms), and the engine's longest and shortest prompts
 FLASH_TIMED = ((4, 1024), (1, 2048), (1, 128))
 FLASH_BATCH = 20  # launches a timed reading of flash attention spans
+# the training kernels' timed shape (B, S, H, K, hd): the benchmark cell's
+# fused pass of smollm-360m (40 rows of 2048 tokens)
+FLASH_TRAIN = (40, 2048, 15, 5, 64)
+# and at mixtral-8x7b's heads and window past one window, hd 128, as its
+# prefill shape in FLASH_FAMILY (B, S, H, K, hd, window)
+FLASH_TRAIN_FAMILY = ((1, 6144, 32, 8, 128, 4096),)
+FLASH_TRAIN_BATCH = 3  # calls a timed reading of the training kernels spans
+# the training kernels' relative error (Frobenius) to the plain chain's, as
+# the card test holds it: each side is about 2.3e-3 from f32 (the outputs'
+# bf16 rounding); 2.9e-3 measured on an H100 at the cell's shape
+FLASH_TRAIN_TOL = 5e-3
 GEN = dict(B=4, S=1024, new=64, cache_len=1088)
 TRACE = dict(n=16, prompt=(128, 2048), new=(32, 128), gap_s=0.3, n_slots=8, cache_len=2176,
              m=8, s=2, delay=5.0)
@@ -657,13 +668,41 @@ def time_decode(torch, m: int, D: int) -> dict:
 
 def launch_counters() -> dict:
     from repro_torch.kernels.coded_reduce import coded_reduce
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_train_bwd,
+                                                     flash_attention_train_fwd)
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
 
     return {"coded_reduce": coded_reduce, "coded_encode_int8": coded_encode_int8,
             "coded_decode_int8": coded_decode_int8, "ssd_scan": ssd_scan,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "flash_attention_train_fwd": flash_attention_train_fwd,
+            "flash_attention_train_bwd": flash_attention_train_bwd}
+
+
+# the training kernels' counters where no layer runs them (f32, hd 80, mamba)
+NO_TRAIN = {"flash_attention_train_fwd": 0, "flash_attention_train_bwd": 0}
+
+
+def smollm_train(n_grads: int, n_losses: int) -> dict:
+    """The training kernels' launches of full-width smollm-360m (bf16, hd
+    64, full remat): each gradient runs the forward twice a layer (the
+    forward and remat's recompute) and the backward once; each loss-only
+    forward (no grad) the forward once."""
+    return {"flash_attention_train_fwd": (2 * n_grads + n_losses) * SMOLLM_LAYERS,
+            "flash_attention_train_bwd": n_grads * SMOLLM_LAYERS}
+
+
+def _passes(records: list[dict]) -> tuple[int, int]:
+    """(gradients, loss-only forwards) of a traced run, from its attention
+    layers' ``device.mixer`` spans: one ``bwd`` span a layer and gradient,
+    one ``fwd`` span a layer and forward of either kind."""
+    mixer = [r for r in records if r["kind"] == "span" and r["name"] == "device.mixer"
+             and r["args"].get("kind") == "attn"]
+    layers = len({r["args"]["layer"] for r in mixer})
+    bwd = sum(r["args"]["pass"] == "bwd" for r in mixer) // max(layers, 1)
+    fwd = sum(r["args"]["pass"] == "fwd" for r in mixer) // max(layers, 1)
+    return bwd, fwd - bwd
 
 
 def main_path(torch, label: str, args: list[str], expected, on_step=None,
@@ -780,8 +819,12 @@ def fault_path(torch) -> dict:
     import shutil
 
     from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.configs import CodingConfig
+    from repro_torch.core.codec import Codec
     from repro_torch.launch import obs_report
     from repro_torch.launch.train import main as train_main
+
+    n_slots = Codec.from_config(CodingConfig(scheme="heter_aware", s=S), m=M, rng=1).n_slots
 
     tmp = ROOT / "build" / "chip_smoke_faults"
     shutil.rmtree(tmp, ignore_errors=True)
@@ -794,7 +837,8 @@ def fault_path(torch) -> dict:
         log("control-plane replay of the fault path (reduced width, CPU):")
         replay = train_main([*FAULT_ARGS, "--reduced", "--device", "cpu",
                              "--log-jsonl", str(tmp / "replay.jsonl")])
-        replay_att = _attempts(obs_report.load_records(str(tmp / "replay.jsonl")))
+        replay_recs = obs_report.load_records(str(tmp / "replay.jsonl"))
+        replay_att, replay_passes = _attempts(replay_recs), _passes(replay_recs)
         counters = launch_counters()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -859,10 +903,13 @@ def fault_path(torch) -> dict:
                                  f"({m_final}, {D_FULL})")
         # the encode m_cur a step attempt, the decode 1 (counted in coded_reduce too)
         n_att = sum(n for n, _ in att)
+        # the training kernels: the CPU replay's gradients and loss forwards
         want = {"coded_reduce": n_att, "coded_encode_int8": sum(n * m for n, m in att),
-                "coded_decode_int8": n_att, "ssd_scan": 0, "flash_attention": 0}
+                "coded_decode_int8": n_att, "ssd_scan": 0, "flash_attention": 0,
+                **smollm_train(*replay_passes)}
         if launches != want:
-            raise AssertionError(f"launches {launches} != {want} from the attempts {att}")
+            raise AssertionError(f"launches {launches} != {want} from the attempts {att} and "
+                                 f"the replay's (gradients, loss forwards) {replay_passes}")
         log(f"fault path (a) ok: {repaired:.0f} steps repaired, m {ms}, every step finite or "
             f"skipped, launches == the attempts' {want}, trajectory == CPU replay")
         step_s = out["step_s"]
@@ -926,7 +973,8 @@ def fault_path(torch) -> dict:
         r_launches = {name: fn.launches for name, fn in counters.items()}
         n_res = RESUME_STEPS - FAULT_STEPS
         r_want = {"coded_reduce": n_res * (M + 1), "coded_encode_int8": 0,
-                  "coded_decode_int8": 0, "ssd_scan": 0, "flash_attention": 0}
+                  "coded_decode_int8": 0, "ssd_scan": 0, "flash_attention": 0,
+                  **smollm_train(n_res * M * n_slots, n_res)}
         if f"resumed from step {FAULT_STEPS}" not in buf.getvalue():
             raise AssertionError(f"no 'resumed from step {FAULT_STEPS}' line")
         if res["summary"]["steps_run"] != n_res or len(res["history"]) != n_res or not all(
@@ -1405,7 +1453,149 @@ def time_flash(torch) -> dict:
             f"plain {plain_ms:.4f} ms, kernel max_abs_err {err:.3e}")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return dict(shapes[0], shapes=shapes, family_shapes=time_flash_family(torch))
+    return dict(shapes[0], shapes=shapes, family_shapes=time_flash_family(torch),
+                train=time_flash_train(torch, *FLASH_TRAIN),
+                train_family=[time_flash_train(torch, *shape, library=False)
+                              for shape in FLASH_TRAIN_FAMILY])
+
+
+def check_flash_train(torch, kern, q, k, v, do, causal, window) -> dict:
+    """The training kernels' o, dq, dk and dv (``kern``) against autograd
+    of the plain version (the model's chain) on the same bf16 inputs and on
+    them in f32 (no rounding anywhere), by the card test's rules: each
+    one's relative error (Frobenius) to f32 at most 1.1x the plain chain's
+    plus 1e-5, and within FLASH_TRAIN_TOL of the plain chain's.  Raises
+    AssertionError on a value over either or one that is not finite."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())  # noqa: E731
+    sides = []
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = [t.detach().to(dtype, copy=True).requires_grad_() for t in (q, k, v)]
+        o = fa.flash_attention_train_torch(*leaves, causal=causal, window=window)
+        o.backward(do.to(dtype))
+        sides.append([o.detach()] + [t.grad for t in leaves])
+        del o, leaves
+        torch.cuda.empty_cache()
+    errs, bad = {}, []
+    for name, a, p, r in zip(("o", "dq", "dk", "dv"), kern, *sides):
+        ek, ep, ekp = rel(a, r), rel(p, r), rel(a, p)
+        errs[name] = dict(to_plain=ekp, to_f32=ek, plain_to_f32=ep)
+        if not (bool(torch.isfinite(a.float()).all()) and ek <= 1.1 * ep + 1e-5
+                and ekp <= FLASH_TRAIN_TOL):
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"flash_attention_train {bad} disagree with the plain chain: {errs}")
+    return errs
+
+
+def time_flash_train(torch, B, S_, H, K, hd, window=None, library=True) -> dict:
+    """Phase 4, the training kernels at one shape (bf16, causal): the
+    forward (o and lse) and the backward (D, dQ, dK and dV) each timed in
+    turns with the library call, kernel, library, library, kernel, a
+    reading a median of 5 of FLASH_TRAIN_BATCH calls; the plain version
+    (the model's chain, forward and autograd backward, on a part of the
+    work, scaled up) beside them.  That part is a quarter of the rows where
+    B >= 4, else the first kv head with its G query heads; the outputs on
+    it are held to the plain version's by :func:`check_flash_train`.
+    With ``library``, the library call is
+    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` on
+    (B, H, S, hd) views, forward alone and forward + backward (its
+    backward's time is the difference): a yardstick, never called by the
+    port; it takes no window.  Bounds: the forward's least work is the two
+    products over the causal (and window) pairs, 4 hd B H pairs
+    operations; the backward's 2.5x that (dP, dV, dQ and dK, and S once
+    more, since P is not kept), over the bf16 tensor-core rate against q,
+    k, v, o, dO (and dq, dk, dv) moved once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = flash_inputs(torch, B, S_, H, K, hd, torch.float32, 97)
+    q = (q * hd**-0.5).to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    do = torch.randn(q.shape, device=q.device,
+                     generator=torch.Generator(device=q.device).manual_seed(96)).to(torch.bfloat16)
+    o, lse = fa.flash_attention_train_fwd(q, k, v, True, window)
+    grads = fa.flash_attention_train_bwd(q, k, v, o, do, lse, True, window)
+    # the plain chain on a part of the work (its (B, K, G, S, S) f32 tensors
+    # are 9.4 GiB each at B 40); its work is linear in the rows and heads
+    if B >= 4:
+        parts, part_q, part_kv = 4, (slice(0, B // 4),), (slice(0, B // 4),)
+    else:
+        parts, part_q, part_kv = K, (slice(None), slice(None), slice(0, H // K)), \
+            (slice(None), slice(None), slice(0, 1))
+    qp, dop = q[part_q], do[part_q]
+    kp, vp = k[part_kv], v[part_kv]
+    errs = check_flash_train(torch, (o[part_q], grads[0][part_q], grads[1][part_kv],
+                                     grads[2][part_kv]), qp, kp, vp, dop, True, window)
+    del grads
+    torch.cuda.empty_cache()
+    fwd = lambda: fa.flash_attention_train_fwd(q, k, v, True, window)  # noqa: E731
+    bwd = lambda: fa.flash_attention_train_bwd(q, k, v, o, do, lse, True, window)  # noqa: E731
+    tc = lambda f: time_cuda(f, reps=5, warmup=1, batch=FLASH_TRAIN_BATCH)  # noqa: E731
+    lib_fwd_ms = lib_both_ms = None
+    if library:
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True, scale=1.0)
+        lib_both = lambda: torch.autograd.backward(sdpa(), dot)  # noqa: E731
+        with torch.no_grad():
+            f_turns = [tc(f) for f in (fwd, sdpa, sdpa, fwd)]
+            b_turns = [tc(bwd)]
+        lb_turns = [tc(lib_both), tc(lib_both)]
+        b_turns.append(tc(bwd))
+        lib_fwd_ms, lib_both_ms = (f_turns[1] + f_turns[2]) / 2, sum(lb_turns) / 2
+        del qt, kt, vt
+    else:
+        with torch.no_grad():
+            f_turns = [tc(fwd), tc(fwd)]
+            b_turns = [tc(bwd), tc(bwd)]
+        f_turns = [f_turns[0], None, None, f_turns[1]]
+        lb_turns = None
+    torch.cuda.empty_cache()
+
+    def plain_both():
+        leaves = [t.detach().requires_grad_() for t in (qp, kp, vp)]
+        fa.flash_attention_train_torch(*leaves, causal=True, window=window).backward(dop)
+
+    with torch.no_grad():
+        plain_fwd_ms = parts * time_cuda(
+            lambda: fa.flash_attention_train_torch(qp, kp, vp, causal=True, window=window),
+            reps=3, warmup=1)
+    plain_both_ms = parts * time_cuda(plain_both, reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    W = S_ if window is None else window
+    unit = 2 * hd * B * H * sum(min(i + 1, W) for i in range(S_))  # one product's pairs
+    fwd_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    fwd_bound, fwd_by = bound(fwd_bytes, 2 * unit, BF16_FLOPS)
+    bwd_bound, bwd_by = bound(2 * fwd_bytes + 2 * q.numel(), 5 * unit, BF16_FLOPS)
+    fwd_ms, bwd_ms = (f_turns[0] + f_turns[3]) / 2, (b_turns[0] + b_turns[1]) / 2
+    res = dict(B=B, S=S_, H=H, K=K, hd=hd, window=window, ms=fwd_ms + bwd_ms, fwd_ms=fwd_ms,
+               bwd_ms=bwd_ms, fwd_turns_ms=f_turns, bwd_turns_ms=b_turns,
+               library_ms=lib_both_ms, library_fwd_ms=lib_fwd_ms,
+               library_bwd_ms=None if lib_both_ms is None else lib_both_ms - lib_fwd_ms,
+               library_both_turns_ms=lb_turns, plain_ms=plain_both_ms,
+               plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_both_ms - plain_fwd_ms,
+               bound_ms=fwd_bound + bwd_bound, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+               bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, rel_err=errs,
+               fwd_TFLOPs=2 * unit / fwd_ms / 1e9, bwd_TFLOPs=5 * unit / bwd_ms / 1e9)
+    lib = ("no library call (SDPA's fused backends take no window)" if lib_both_ms is None else
+           f"scaled_dot_product_attention forward {lib_fwd_ms:.3f} ms ({f_turns[1]:.3f}, "
+           f"{f_turns[2]:.3f}), forward + backward {lib_both_ms:.3f} ms ({lb_turns[0]:.3f}, "
+           f"{lb_turns[1]:.3f}), kernels / library forward + backward "
+           f"{res['ms'] / lib_both_ms:.3f}")
+    log(f"time flash_attention_train B={B} S={S_} H={H} K={K} hd={hd} window={window} bf16 "
+        f"causal: forward + backward {res['ms']:.3f} ms (bound {res['bound_ms']:.3f}); forward "
+        f"{fwd_ms:.3f} ms ({f_turns[0]:.3f}, {f_turns[3]:.3f}; {res['fwd_TFLOPs']:.1f} TFLOP/s "
+        f"of the least {2 * unit / 1e9:.1f} GFLOP; bound {fwd_bound:.3f} ms by {fwd_by}, "
+        f"{fwd_bound / fwd_ms:.1%} of it), backward {bwd_ms:.3f} ms ({b_turns[0]:.3f}, "
+        f"{b_turns[1]:.3f}; {res['bwd_TFLOPs']:.1f} TFLOP/s of the least {5 * unit / 1e9:.1f} "
+        f"GFLOP; bound {bwd_bound:.3f} ms by {bwd_by}, {bwd_bound / bwd_ms:.1%} of it); {lib}; "
+        f"plain forward {plain_fwd_ms:.1f} ms, forward + backward {plain_both_ms:.1f} ms "
+        f"(1/{parts} of the work, times {parts}); relative errors ok: {errs}")
+    return res
 
 
 def time_flash_family(torch) -> list[dict]:
@@ -1894,14 +2084,16 @@ def jamba_path(torch, plain_launches) -> dict:
     BF16_LOGIT_LIMIT of max|logit| and the tokens equal under the near-tie
     rule at BF16_NEAR_TIE.  Then one ``fused`` coded training step through
     the launcher (``--reduced``, f32) held to a CPU replay, with
-    ``LM.seq_losses`` wrapped for the step to split the step's own loss:
-    the sequence losses whose weighted sum is the step's loss are each the
-    plain model's cross-entropy of the same batch plus ``aux_coef`` x the
-    MoE load-balance term, which is finite and positive."""
+    ``LM._losses`` observed, not replaced: beside the step's weighted call
+    the same model's sequence losses of the same weights and batch, whose
+    weighted sum is the step's loss, are each the plain model's
+    cross-entropy of the same batch plus ``aux_coef`` x the MoE
+    load-balance term, which is finite and positive."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM, build_model
+    from repro_torch.obs.trace import NULL_TRACER
     from repro_torch.train.serve import LMServer
 
     g = JAMBA_GEN
@@ -1959,33 +2151,47 @@ def jamba_path(torch, plain_launches) -> dict:
     plain32 = build_model(red, ssd_impl="torch", attn_impl="torch")
     ce32 = build_model(dataclasses.replace(red, aux_coef=0.0), ssd_impl="torch",
                        attn_impl="torch")
-    seq_losses, seen = LM.seq_losses, []
+    # seq_losses and weighted_loss both run LM._losses (weight None or the
+    # batch's).  The weighted call on the card runs as the program has it;
+    # beside it, the same model's sequence losses of the same weights and
+    # batch are read untraced and without grad, their kernel launches
+    # taken off the counters main_path holds to the step's
+    losses, seen = LM._losses, []
+    counted = launch_counters()
 
-    def split(self, params, batch):
-        out = seq_losses(self, params, batch)
-        if out.device.type == dev.type:  # the step on the card, not the CPU replay
-            with torch.no_grad():
-                p = {k: v.detach() for k, v in params.items()}
-                seen.append(dict(loss=float((out.detach() * batch["weight"]).sum()),
-                                 seq=out.detach().clone(), ce=seq_losses(ce32, p, batch),
-                                 aux=float(plain32.forward(p, batch)[1])))
+    def observed(self, params, batch, weight):
+        out = losses(self, params, batch, weight)
+        if weight is not None and out.device.type == dev.type:  # the step on the card
+            launched = {name: fn.launches for name, fn in counted.items()}
+            tracer, self.tracer = self.tracer, NULL_TRACER
+            try:
+                with torch.no_grad():
+                    p = {k: v.detach() for k, v in params.items()}
+                    seq = losses(self, p, batch, None)
+                    seen.append(dict(loss=float((seq * weight).sum()), seq=seq,
+                                     ce=ce32.seq_losses(p, batch),
+                                     aux=float(plain32.forward(p, batch)[1])))
+            finally:
+                self.tracer = tracer
+                for name, fn in counted.items():
+                    fn.launches = launched[name]
         return out
 
     fused = lambda n: {**plain_launches(0), "ssd_scan": n * mamba_layers}  # noqa: E731
-    LM.seq_losses = split
+    LM._losses = observed
     try:
         step = main_path(torch, "jamba fused", JAMBA_ARGS, fused, n_params_want=n_red, steps=1)
     finally:
-        LM.seq_losses = seq_losses
+        LM._losses = losses
     if len(seen) != 1:
-        raise AssertionError(f"jamba: the step computed its sequence losses {len(seen)} times")
+        raise AssertionError(f"jamba: the step made {len(seen)} weighted loss calls on the card")
     s, loss = seen[0], step["losses"][0]
     gap = float((s["seq"] - s["ce"] - red.aux_coef * s["aux"]).abs().max())
     limit = 1e-4 * float(s["seq"].abs().max())
     ok = (abs(s["loss"] - loss) <= 1e-6 * abs(loss) and math.isfinite(s["aux"]) and s["aux"] > 0
           and gap <= limit)
     log(f"family {JAMBA} fused step: loss {loss:.6f}, the weighted sum of the sequence losses "
-        f"the step computed {s['loss']:.6f}; each sequence's loss minus the plain model's "
+        f"at the step's weights {s['loss']:.6f}; each sequence's loss minus the plain model's "
         f"cross-entropy against aux_coef x aux = {red.aux_coef} x {s['aux']:.4f}: max|diff| "
         f"{gap:.3e} (limit 1e-4 x max|loss| = {limit:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2842,18 +3048,21 @@ def main() -> int:
     # 5. the main paths, 6. the f32 cross-checks
     plain_launches = lambda n: {  # noqa: E731
         "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
-        "ssd_scan": 0, "flash_attention": 0}
+        "ssd_scan": 0, "flash_attention": 0, **NO_TRAIN}
+    # smollm's steps: m * n_slots gradients and one loss forward each
+    smollm_launches = lambda n: {  # noqa: E731
+        **plain_launches(n), **smollm_train(n * M * n_slots, n)}
     wire_launches = lambda n: {  # noqa: E731
         "coded_reduce": n, "coded_encode_int8": n * M, "coded_decode_int8": n, "ssd_scan": 0,
-        "flash_attention": 0}
+        "flash_attention": 0, **smollm_train(n * M * n_slots, n)}
     # a step's forward passes: two per worker slot (m * n_slots gradients,
     # each forward run again by remat's recompute) and one more for the
     # step's loss at the decoded weights (no grad: no remat)
     passes = 2 * M * n_slots + 1
     mamba_launches = lambda n: {  # noqa: E731
         "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
-        "ssd_scan": n * passes * MAMBA_LAYERS, "flash_attention": 0}
-    run = main_path(torch, "spmd", SLICE_ARGS, plain_launches)
+        "ssd_scan": n * passes * MAMBA_LAYERS, "flash_attention": 0, **NO_TRAIN}
+    run = main_path(torch, "spmd", SLICE_ARGS, smollm_launches)
     wire_run = main_path(torch, "spmd --compress", WIRE_ARGS, wire_launches,
                          on_step=check_err_after_step(torch))
     import shutil
@@ -3023,6 +3232,31 @@ def main() -> int:
                            "f32": "f32 FMAs on the CUDA cores"},
         "hgmma_instructions": hgmma,
         "checks": flash_check,
+    }, {
+        "name": "flash_attention_train",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "none: the JAX trainer differentiates its plain attention "
+                    "(src/repro/models/attention.py:62)",
+        "launches": run["launches"]["flash_attention_train_fwd"],
+        "launches_bwd": run["launches"]["flash_attention_train_bwd"],
+        "launches_compressed_path": {k: wire_run["launches"][k] for k in
+                                     ("flash_attention_train_fwd", "flash_attention_train_bwd")},
+        "max_rel_err": max(e["to_plain"] for t in [tflash["train"], *tflash["train_family"]]
+                           for e in t["rel_err"].values()),
+        "rel_err_limit": FLASH_TRAIN_TOL,
+        **{key: tflash["train"][key] for key in (
+            "ms", "fwd_ms", "bwd_ms", "plain_ms", "plain_fwd_ms", "plain_bwd_ms", "bound_ms",
+            "fwd_bound_ms", "bwd_bound_ms", "library_ms", "library_fwd_ms", "library_bwd_ms")},
+        "ms_is": "forward + backward, beside library_ms, plain_ms and bound_ms of the same",
+        "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True), forward + backward",
+        "shape": "q ({0}, {1}, {2}, {4}) bf16 scaled, k/v ({0}, {1}, {3}, {4}) bf16, "
+                 "causal".format(*FLASH_TRAIN),
+        "timing": tflash["train"],
+        "family_shapes": [{k: t[k] for k in ("B", "S", "H", "K", "hd", "window", "ms", "fwd_ms",
+                                             "bwd_ms", "plain_ms", "bound_ms", "rel_err")}
+                          for t in tflash["train_family"]],
     }, {
         "name": "coded_reduce_best",
         "route": "cuda",

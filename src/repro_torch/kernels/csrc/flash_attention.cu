@@ -1,4 +1,5 @@
-// flash_attention: online-softmax attention, forward only, for sm_90a.
+// flash_attention: online-softmax attention for sm_90a: prefill's forward,
+// and training's forward and backward.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:93
 // flash_attention_pallas (pallas_call body _flash_kernel, :32-86).  For
@@ -16,21 +17,48 @@
 // -1e30; the first real score scales those 1s away by exp(-1e30 - m_new) = 0,
 // as on the TPU.  No NaN can arise: every value entering an exp is finite.
 //
-// Two instantiations, chosen by the dtype code of the C entry point and by
-// nothing else (neither is a fallback of the other):
+// Prefill: two instantiations, chosen by the dtype code of the C entry
+// point and by nothing else (neither is a fallback of the other):
 //
-//  - bf16: the tensor-core kernel below (flash_bf16_kernel): wgmma fed by
-//    TMA.  This is the serving prefill's path.
+//  - bf16: the tensor-core kernel below (flash_bf16_kernel<HD, false>): wgmma
+//    fed by TMA.  This is the serving prefill's path.
 //  - f32: the CUDA-core kernel (flash_attention_kernel<float, HD>): f32
 //    FMAs out of shared memory.  It serves the f32 cross-checks only.
+//
+// Training (bf16 only; no TPU kernel: the JAX trainer differentiates its
+// plain attention): flash_bf16_kernel<HD, true> forward, and a backward of
+// three launches.  Their precision contract is the model's own rounding
+// (models/attention.py), not prefill's one bf16 spacing: q arrives scaled by
+// hd^-0.5 in bf16 and the kernel folds only log2 e into the exponent, p is
+// rounded once to bf16 for P.V, and the forward writes each row's log2-sum-
+// exp2 (lse, f32) beside o.  The backward (flash_bwd_*):
+//  - D = rowsum(dO o O) in f32, one thread a row;
+//  - dQ, one block per (b, h, 128 q rows), walking the kv tiles of the
+//    forward's predicate: S = Q.K^T and dP = dO.V^T (f32 accumulators),
+//    P = 2^(S log2 e - lse), dS = P o (dP - D), dQ += dS.K;
+//  - dK and dV, one block per (b, kv head, 128 kv rows), K and V held in
+//    shared memory while the block walks the G query heads of the kv head
+//    and their 64-row q tiles that the causal or window predicate keeps:
+//    S^T = K.Q^T, dP^T = V.dO^T, dV += bf16(P^T).dO, dK += dS^T.Q.  GQA's
+//    sum over the G heads stays in the block's registers.
+//  No atomics: every output element has one owner and a fixed order of
+//  sums, so two calls are bit-equal.  P enters P^T.dO as bf16, as the model
+//  rounds it; dS enters dQ and dK split into bf16 hi + lo (two wgmmas into
+//  one f32 accumulator), where the plain chain multiplies it in f32.  Both
+//  passes are warp-specialised as the forward: a TMA producer warpgroup (lse
+//  and D rows by cp.async.bulk) and two consumer warpgroups.  The backward
+//  does S, dP, P.dO once and dS.Q and dS.K twice (hi + lo), and S and dP a
+//  second time in the dQ pass: 4.5x the forward's least work.
 //
 // Bound: operations.  Causal prefill at smollm-360m's heads (H=15, K=5,
 // hd=64) does 4*hd*B*H*S(S+1)/2 multiply-adds counted as two operations
 // each (8.06 GFLOP at B=4, S=1024) on 21 MB of q, k, v and o: far above the
 // H100's ridge, so the least time is the product over the bf16 tensor-core
-// rate, and the tensor cores are the lever.
+// rate, and the tensor cores are the lever.  Training is the same: the
+// backward's products on tiles of 64 and 128 rows, its elementwise work of
+// five operations an S entry.
 //
-// The bf16 kernel.
+// The bf16 forward (prefill's arithmetic; training's differs as above).
 //  - Arithmetic.  S = Q.K^T on bf16 q and k as they are, f32 accumulators
 //    (the products are exact, so S differs from the plain version's only in
 //    summation order); the f32 score is then multiplied by hd^-0.5 * log2(e)
@@ -398,11 +426,15 @@ struct Tiles {
 // grid: n_qt * B * H blocks, the query tiles longest first; block: two
 // consumer warpgroups (rows 0-63, 64-127 of the tile) and a producer
 // warpgroup.
-template <int HD>
+// kTrain: the training instantiation (q scaled by the caller, scale 1; P
+// rounded once to bf16 for P.V; the row's log2-sum-exp2 written to lse
+// (B*H, S_pad) f32 for every row below S_pad).  Otherwise prefill's.
+template <int HD, bool kTrain>
 __global__ void __launch_bounds__(kBThreads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-                  int H, int K, int BH, int n_qt, int causal, int window, float scale) {
+                  const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                  float* __restrict__ lse, int S, int S_pad, int H, int K, int BH, int n_qt,
+                  int causal, int window, float scale) {
   using T = Tiles<HD>;
   constexpr int kCW = T::kCW, kSW = T::kSW, kNC = T::kNC, kBK = T::kBK;
   extern __shared__ uint8_t smem_raw[];
@@ -525,7 +557,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t dv = smem_desc(Vt + c * (kBK * kSW) + kk * 16 * kSW, kSW, kBK * kSW);
         wgmma_rs(acc[c], phi[kk], dv);
-        wgmma_rs(acc[c], plo[kk], dv);
+        if constexpr (!kTrain) wgmma_rs(acc[c], plo[kk], dv);
       }
     wgmma_commit();
   };
@@ -581,9 +613,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
   };
-  // p split into bf16 hi + bf16 lo of the remainder, packed in the A-operand
-  // layout of m64nNk16: register j of depth step kk holds S registers
-  // 8 kk + 2 j, 8 kk + 2 j + 1
+  // p split into bf16 hi + bf16 lo of the remainder (training: hi alone),
+  // packed in the A-operand layout of m64nNk16: register j of depth step kk
+  // holds S registers 8 kk + 2 j, 8 kk + 2 j + 1
   auto pack_p = [&]() {
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
@@ -592,8 +624,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         const int i = 8 * kk + 2 * j;
         const uint32_t hi = pack_bf16(s[i], s[i + 1]);
         phi[kk][j] = hi;
-        plo[kk][j] = pack_bf16(s[i] - __uint_as_float(hi << 16),
-                               s[i + 1] - __uint_as_float(hi & 0xFFFF0000u));
+        if constexpr (!kTrain)
+          plo[kk][j] = pack_bf16(s[i] - __uint_as_float(hi << 16),
+                                 s[i + 1] - __uint_as_float(hi & 0xFFFF0000u));
       }
   };
 
@@ -656,6 +689,16 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if constexpr (kTrain) {
+    // log2 of the row's sum of 2^(s log2 e): m + log2 l, finite on every row
+    // (a row past S scores 0s or, windowed past S, all -1e30s)
+    if ((lane & 3) == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? rowB : rowA;
+        if (row < S_pad) lse[static_cast<long long>(bh) * S_pad + row] = m[r] + log2f(l[r]);
+      }
+  }
   const long long row_stride = static_cast<long long>(H) * HD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -674,6 +717,469 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       }
   }
 }
+
+
+// ---------------------------------------------------------------------------
+// bf16 training backward: three launches (D, dQ, dK and dV), no atomics
+
+// cp.async.bulk of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// D = rowsum(dO o O) in f32, (B*H, S_pad), 0 past S: one thread a row
+constexpr int kDotThreads = 256;
+
+__global__ void __launch_bounds__(kDotThreads)
+flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                     float* __restrict__ dsum, int S, int S_pad, int H, int hd, long long total) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kDotThreads + threadIdx.x;
+  if (idx >= total) return;
+  const int i = static_cast<int>(idx % S_pad);
+  const long long bh = idx / S_pad;
+  float acc = 0.f;
+  if (i < S) {
+    const long long off = ((bh / H * S + i) * H + bh % H) * hd;
+    const uint4* po = reinterpret_cast<const uint4*>(o + off);
+    const uint4* pd = reinterpret_cast<const uint4*>(dout + off);
+    for (int c = 0; c < hd / 8; ++c) {
+      const uint4 a = po[c], d = pd[c];
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(a2[j]), fd = __bfloat1622float2(d2[j]);
+        acc = fmaf(fa.x, fd.x, acc);
+        acc = fmaf(fa.y, fd.y, acc);
+      }
+    }
+  }
+  dsum[idx] = acc;
+}
+
+constexpr int kBKd = 64;    // dQ pass: kv rows of a tile (its q tile is kBQ = 128)
+constexpr int kBKV = 128;   // dK/dV pass: kv rows of a block, two warpgroups of 64
+constexpr int kBQd = 64;    // dK/dV pass: q rows of a tile
+
+template <int HD>
+struct BwdTiles {
+  static constexpr uint32_t kQ128 = kBQ * HD * 2;   // a 128-row q / dO / k / v tile
+  static constexpr uint32_t kT64 = kBQd * HD * 2;   // a 64-row one
+  // dQ: Q and dO of the block, a ring of 64-row K and V tiles
+  static constexpr size_t kSmemDQ =
+      1024 + 2 * kQ128 + 2 * kStages * static_cast<size_t>(kT64) + 128;
+  // dK/dV: K and V of the block, a ring of 64-row Q and dO tiles with their
+  // 64 rows of lse and D
+  static constexpr size_t kSmemDKV =
+      1024 + 2 * kQ128 + kStages * (2 * static_cast<size_t>(kT64) + 2 * kBQd * 4) + 128;
+};
+
+// dQ = dS . K of the scaled q, one block per (b, h, 128-row q tile), the
+// query tiles longest first; the kv tiles of the forward's predicate at
+// (kBQ, kBKd).  Per kv tile each consumer warpgroup (64 q rows) computes S =
+// Q.K^T and dP = dO.V^T (f32 accumulators), P = 2^(S log2 e - lse), dS = P
+// o (dP - D), and dQ += dS_hi.K + dS_lo.K with dS split into bf16 hi + lo.
+template <int HD>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, const float* __restrict__ dsum,
+                    __nv_bfloat16* __restrict__ dq, int S, int S_pad, int H, int K, int BH,
+                    int n_qt, int causal, int window) {
+  using T = Tiles<HD>;
+  using BT = BwdTiles<HD>;
+  constexpr int kCW = T::kCW, kSW = T::kSW, kNC = T::kNC, kBK = kBKd;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* Qs = base;                 // [kNC][kBQ][kCW]
+  uint8_t* dOs = Qs + BT::kQ128;      // [kNC][kBQ][kCW]
+  uint8_t* Ks = dOs + BT::kQ128;      // [kStages][kNC][kBK][kCW]
+  uint8_t* Vs = Ks + kStages * BT::kT64;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + kStages * BT::kT64);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / BH;  // longest first
+  const int bh = static_cast<int>(blockIdx.x) % BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  const int q0 = qt * kBQ;
+  const int n_kt = (S + kBK - 1) / kBK;
+  const int kt_end = causal ? min(n_kt, (q0 + kBQ - 1) / kBK + 1) : n_kt;
+  int kt_begin = 0;
+  if (window > 0) {
+    const int lim = q0 - window - (kBK - 1);
+    kt_begin = lim < 0 ? 0 : lim / kBK + 1;
+  }
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers) {
+      mbar_expect_tx(qbar, 2 * BT::kQ128);
+      for (int c = 0; c < kNC; ++c) {
+        tma_load(Qs + c * (kBQ * kSW), &tq, qbar, c * kCW, h, q0, b);
+        tma_load(dOs + c * (kBQ * kSW), &tdo, qbar, c * kCW, h, q0, b);
+      }
+      int stage = 0, phase = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * BT::kT64);
+        for (int c = 0; c < kNC; ++c) {
+          tma_load(Ks + stage * BT::kT64 + c * (kBK * kSW), &tk, &full[stage], c * kCW, kh,
+                   kt * kBK, b);
+          tma_load(Vs + stage * BT::kT64 + c * (kBK * kSW), &tv, &full[stage], c * kCW, kh,
+                   kt * kBK, b);
+        }
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int qw0 = q0 + 64 * wg;
+  const int rowA = qw0 + 16 * warp + lane / 4, rowB = rowA + 8;
+  const int col_in = 2 * (lane % 4);
+  // each row's lse (log2 units) and D; a row past S reads 0s
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rowB : rowA;
+    const long long at = static_cast<long long>(bh) * S_pad + row;
+    lr[r] = row < S ? lse[at] : 0.f;
+    dr[r] = row < S ? dsum[at] : 0.f;
+  }
+
+  float acc[kNC][kCW / 2];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < kCW / 2; ++i) acc[c][i] = 0.f;
+  float s[kBK / 2], dp[kBK / 2];
+  uint32_t dhi[kBK / 16][4], dlo[kBK / 16][4];
+  const uint8_t* Qw = Qs + 64 * wg * kSW;
+  const uint8_t* dOw = dOs + 64 * wg * kSW;
+
+  mbar_wait(qbar, 0);
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int it = kt - kt_begin, stage = it % kStages;
+    mbar_wait(&full[stage], (it / kStages) & 1);
+    const uint8_t* Kt = Ks + stage * BT::kT64;
+    const uint8_t* Vt = Vs + stage * BT::kT64;
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < HD / 16; ++t) {
+      const int c = t * 16 / kCW, off = (t * 16 % kCW) * 2;
+      wgmma_ss(s, smem_desc(Qw + c * (kBQ * kSW) + off, kSW, 16),
+               smem_desc(Kt + c * (kBK * kSW) + off, kSW, 16), t);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int t = 0; t < HD / 16; ++t) {
+      const int c = t * 16 / kCW, off = (t * 16 % kCW) * 2;
+      wgmma_ss(dp, smem_desc(dOw + c * (kBQ * kSW) + off, kSW, 16),
+               smem_desc(Vt + c * (kBK * kSW) + off, kSW, 16), t);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    // P = 2^(S log2 e - lse), 0 where masked (a select, on the tiles that
+    // cross the diagonal, the window's edge or S)
+    const int k0 = kt * kBK;
+    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > qw0) ||
+                      (window > 0 && k0 <= qw0 + 63 - window);
+    if (edge) {
+      const int base = k0 + col_in;
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? rowB : rowA;
+        hi[r] = (causal ? min(S - 1, row) : S - 1) - base;
+        lo[r] = window > 0 ? row - window - base : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) {
+        const int off = 8 * (i / 4) + (i & 1), r = (i >> 1) & 1;
+        const float p = ex2(fmaf(s[i], kLog2e, -lr[r]));
+        s[i] = off > lo[r] && off <= hi[r] ? p : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBK / 2; ++i) s[i] = ex2(fmaf(s[i], kLog2e, -lr[(i >> 1) & 1]));
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // dS = P o (dP - D), split into bf16 hi + lo in the A-operand layout
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j;
+        const float d = dr[(i >> 1) & 1];
+        const float d0 = s[i] * (dp[i] - d), d1 = s[i + 1] * (dp[i + 1] - d);
+        const uint32_t hi = pack_bf16(d0, d1);
+        dhi[kk][j] = hi;
+        dlo[kk][j] = pack_bf16(d0 - __uint_as_float(hi << 16),
+                               d1 - __uint_as_float(hi & 0xFFFF0000u));
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t dk = smem_desc(Kt + c * (kBK * kSW) + kk * 16 * kSW, kSW, kBK * kSW);
+        wgmma_rs(acc[c], dhi[kk], dk);
+        wgmma_rs(acc[c], dlo[kk], dk);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) fence_regs(acc[c]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  }
+
+  const long long row_stride = static_cast<long long>(H) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rowB : rowA;
+    if (row >= S) continue;
+    __nv_bfloat16* drow = dq + (static_cast<long long>(b) * S + row) * row_stride +
+                          static_cast<long long>(h) * HD;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int j = 0; j < kCW / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(drow + c * kCW + 8 * j + col_in) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * r], acc[c][4 * j + 2 * r + 1]);
+  }
+}
+
+// dK and dV, one block per (b, kv head, 128-row kv tile), the kv tiles with
+// the most query tiles first; each consumer warpgroup owns 64 kv rows and
+// keeps dK and dV in registers while the block walks the G query heads of
+// its kv head and, in each, the 64-row query tiles that the causal or
+// window predicate keeps.  Per tile: S^T = K.Q^T, dP^T = V.dO^T, P^T =
+// 2^(S^T log2 e - lse), dS^T = P^T o (dP^T - D), dV += bf16(P^T).dO, dK +=
+// dS^T_hi.Q + dS^T_lo.Q.  The sum over the G heads stays in the block.
+template <int HD>
+__global__ void __launch_bounds__(kBThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                      const float* __restrict__ dsum, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int S, int S_pad, int H, int K, int BK,
+                      int causal, int window) {
+  using T = Tiles<HD>;
+  using BT = BwdTiles<HD>;
+  constexpr int kCW = T::kCW, kSW = T::kSW, kNC = T::kNC;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* Ks = base;                          // [kNC][kBKV][kCW]
+  uint8_t* Vs = Ks + BT::kQ128;                // [kNC][kBKV][kCW]
+  uint8_t* Qs = Vs + BT::kQ128;                // [kStages][kNC][kBQd][kCW]
+  uint8_t* dOs = Qs + kStages * BT::kT64;      // [kStages][kNC][kBQd][kCW]
+  float* Ls = reinterpret_cast<float*>(dOs + kStages * BT::kT64);  // [kStages][kBQd]
+  float* Ds = Ls + kStages * kBQd;                                  // [kStages][kBQd]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ds + kStages * kBQd);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int kt = static_cast<int>(blockIdx.x) / BK;  // kv tile 0 has the most q tiles
+  const int bk = static_cast<int>(blockIdx.x) % BK;
+  const int b = bk / K, kh = bk % K;
+  const int G = H / K;
+  const int k0 = kt * kBKV;
+  const int n_qt = (S + kBQd - 1) / kBQd;
+  // live q tiles: causal, last row >= k0; windowed, first row < last kv
+  // row + window
+  const int qt_begin = causal ? k0 / kBQd : 0;
+  const int qt_end = window > 0 ? min(n_qt, (k0 + kBKV - 2 + window) / kBQd + 1) : n_qt;
+  const int n_q = qt_end - qt_begin;
+  const int n_it = G * n_q;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers) {
+      mbar_expect_tx(kvbar, 2 * BT::kQ128);
+      for (int c = 0; c < kNC; ++c) {
+        tma_load(Ks + c * (kBKV * kSW), &tk, kvbar, c * kCW, kh, k0, b);
+        tma_load(Vs + c * (kBKV * kSW), &tv, kvbar, c * kCW, kh, k0, b);
+      }
+      int stage = 0, phase = 0;
+      for (int it = 0; it < n_it; ++it) {
+        const int h = kh * G + it / n_q, q0 = (qt_begin + it % n_q) * kBQd;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], 2 * BT::kT64 + 2 * kBQd * 4);
+        for (int c = 0; c < kNC; ++c) {
+          tma_load(Qs + stage * BT::kT64 + c * (kBQd * kSW), &tq, &full[stage], c * kCW, h, q0, b);
+          tma_load(dOs + stage * BT::kT64 + c * (kBQd * kSW), &tdo, &full[stage], c * kCW, h, q0,
+                   b);
+        }
+        const long long at = (static_cast<long long>(b) * H + h) * S_pad + q0;
+        bulk_load(Ls + stage * kBQd, lse + at, kBQd * 4, &full[stage]);
+        bulk_load(Ds + stage * kBQd, dsum + at, kBQd * 4, &full[stage]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int kw0 = k0 + 64 * wg;
+  const int rowA = kw0 + 16 * warp + lane / 4, rowB = rowA + 8;
+  const int col_in = 2 * (lane % 4);
+
+  float dK[kNC][kCW / 2], dV[kNC][kCW / 2];
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < kCW / 2; ++i) dK[c][i] = dV[c][i] = 0.f;
+  float st[kBQd / 2], dpt[kBQd / 2];
+  uint32_t pp[kBQd / 16][4], dhi[kBQd / 16][4], dlo[kBQd / 16][4];
+  const uint8_t* Kw = Ks + 64 * wg * kSW;
+  const uint8_t* Vw = Vs + 64 * wg * kSW;
+
+  mbar_wait(kvbar, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it % kStages;
+    const int q0 = (qt_begin + it % n_q) * kBQd;
+    mbar_wait(&full[stage], (it / kStages) & 1);
+    const uint8_t* Qt = Qs + stage * BT::kT64;
+    const uint8_t* dOt = dOs + stage * BT::kT64;
+    const float* L = Ls + stage * kBQd;
+    const float* Dd = Ds + stage * kBQd;
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < HD / 16; ++t) {
+      const int c = t * 16 / kCW, off = (t * 16 % kCW) * 2;
+      wgmma_ss(st, smem_desc(Kw + c * (kBKV * kSW) + off, kSW, 16),
+               smem_desc(Qt + c * (kBQd * kSW) + off, kSW, 16), t);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int t = 0; t < HD / 16; ++t) {
+      const int c = t * 16 / kCW, off = (t * 16 % kCW) * 2;
+      wgmma_ss(dpt, smem_desc(Vw + c * (kBKV * kSW) + off, kSW, 16),
+               smem_desc(dOt + c * (kBQd * kSW) + off, kSW, 16), t);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+    // register i holds kv row (i >> 1) & 1 of the thread's two and q column
+    // q0 + 8 (i / 4) + (i & 1) + col_in; P^T is 0 where masked, by a select
+    // on the tiles that cross the diagonal, the window's edge or S
+    const bool edge = q0 + kBQd > S || (causal && q0 < kw0 + 63) ||
+                      (window > 0 && q0 + kBQd - 1 - window >= kw0);
+#pragma unroll
+    for (int i = 0; i < kBQd / 2; ++i) {
+      const int lc = 8 * (i / 4) + (i & 1) + col_in;
+      const float p = ex2(fmaf(st[i], kLog2e, -L[lc]));
+      if (edge) {
+        const int row = (i >> 1) & 1 ? rowB : rowA, qi = q0 + lc;
+        const bool ok = qi < S && (!causal || row <= qi) && (window <= 0 || row > qi - window);
+        st[i] = ok ? p : 0.f;
+      } else {
+        st[i] = p;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+#pragma unroll
+    for (int kk = 0; kk < kBQd / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 8 * kk + 2 * j;
+        const int lc = 8 * (i / 4) + col_in;  // columns lc, lc + 1
+        pp[kk][j] = pack_bf16(st[i], st[i + 1]);
+        const float d0 = st[i] * (dpt[i] - Dd[lc]), d1 = st[i + 1] * (dpt[i + 1] - Dd[lc + 1]);
+        const uint32_t hi = pack_bf16(d0, d1);
+        dhi[kk][j] = hi;
+        dlo[kk][j] = pack_bf16(d0 - __uint_as_float(hi << 16),
+                               d1 - __uint_as_float(hi & 0xFFFF0000u));
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < kBQd / 16; ++kk) {
+        const uint32_t o = c * (kBQd * kSW) + kk * 16 * kSW;
+        wgmma_rs(dV[c], pp[kk], smem_desc(dOt + o, kSW, kBQd * kSW));
+        const uint64_t dq = smem_desc(Qt + o, kSW, kBQd * kSW);
+        wgmma_rs(dK[c], dhi[kk], dq);
+        wgmma_rs(dK[c], dlo[kk], dq);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) {
+      fence_regs(dK[c]);
+      fence_regs(dV[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  }
+
+  const long long row_stride = static_cast<long long>(K) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? rowB : rowA;
+    if (row >= S) continue;
+    const long long at = (static_cast<long long>(b) * S + row) * row_stride +
+                         static_cast<long long>(kh) * HD;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+#pragma unroll
+      for (int j = 0; j < kCW / 8; ++j) {
+        const int col = c * kCW + 8 * j + col_in;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
+            __floats2bfloat162_rn(dK[c][4 * j + 2 * r], dK[c][4 * j + 2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+            __floats2bfloat162_rn(dV[c][4 * j + 2 * r], dV[c][4 * j + 2 * r + 1]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
 
 // cuTensorMapEncodeTiled from the driver the process has loaded (no -lcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -711,9 +1217,10 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd, i
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                        int K, int causal, int window, float scale, cudaStream_t stream) {
+template <int HD, bool kTrain>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int S, int S_pad, int H, int K, int causal, int window, float scale,
+                        cudaStream_t stream) {
   constexpr size_t smem = Tiles<HD>::kSmem;
   static_assert(smem <= kMaxSmem, "flash_attention tiles exceed an H100 block's shared memory");
   const EncodeTiled encode = encode_tiled();
@@ -723,27 +1230,95 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
       !tensor_map(encode, &tk, k, HD, K, S, B, Tiles<HD>::kBK) ||
       !tensor_map(encode, &tv, v, HD, K, S, B, Tiles<HD>::kBK))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<HD, kTrain>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int n_qt = (S + kBQ - 1) / kBQ;
   const long long blocks = static_cast<long long>(B) * H * n_qt;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  flash_bf16_kernel<HD><<<static_cast<unsigned>(blocks), kBThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, K, B * H, n_qt, causal, window, scale);
+  flash_bf16_kernel<HD, kTrain><<<static_cast<unsigned>(blocks), kBThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, S_pad, H, K, B * H, n_qt, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16_hd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                           int H, int K, int hd, int causal, int window, float scale,
-                           cudaStream_t stream) {
+template <bool kTrain>
+cudaError_t launch_bf16_hd(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int B, int S, int S_pad, int H, int K, int hd, int causal, int window,
+                           float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_bf16<16>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
-    case 32: return launch_bf16<32>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
-    case 64: return launch_bf16<64>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
-    case 128: return launch_bf16<128>(q, k, v, o, B, S, H, K, causal, window, scale, stream);
+    case 16:
+      return launch_bf16<16, kTrain>(q, k, v, o, lse, B, S, S_pad, H, K, causal, window, scale,
+                                     stream);
+    case 32:
+      return launch_bf16<32, kTrain>(q, k, v, o, lse, B, S, S_pad, H, K, causal, window, scale,
+                                     stream);
+    case 64:
+      return launch_bf16<64, kTrain>(q, k, v, o, lse, B, S, S_pad, H, K, causal, window, scale,
+                                     stream);
+    case 128:
+      return launch_bf16<128, kTrain>(q, k, v, o, lse, B, S, S_pad, H, K, causal, window, scale,
+                                      stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* dsum, void* dq, void* dk,
+                       void* dv, int B, int S, int S_pad, int H, int K, int causal, int window,
+                       cudaStream_t stream) {
+  using BT = BwdTiles<HD>;
+  static_assert(BT::kSmemDQ <= kMaxSmem && BT::kSmemDKV <= kMaxSmem,
+                "flash_attention backward tiles exceed an H100 block's shared memory");
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  // dQ reads 128-row q and dO tiles and 64-row k and v tiles; dK/dV the
+  // other way round
+  CUtensorMap tq128, tdo128, tk64, tv64, tq64, tdo64, tk128, tv128;
+  if (!tensor_map(encode, &tq128, q, HD, H, S, B, kBQ) ||
+      !tensor_map(encode, &tdo128, dout, HD, H, S, B, kBQ) ||
+      !tensor_map(encode, &tk64, k, HD, K, S, B, kBKd) ||
+      !tensor_map(encode, &tv64, v, HD, K, S, B, kBKd) ||
+      !tensor_map(encode, &tq64, q, HD, H, S, B, kBQd) ||
+      !tensor_map(encode, &tdo64, dout, HD, H, S, B, kBQd) ||
+      !tensor_map(encode, &tk128, k, HD, K, S, B, kBKV) ||
+      !tensor_map(encode, &tv128, v, HD, K, S, B, kBKV))
+    return cudaErrorInvalidValue;
+  const int n_qt = (S + kBQ - 1) / kBQ, n_kvt = (S + kBKV - 1) / kBKV;
+  const long long dq_blocks = static_cast<long long>(B) * H * n_qt;
+  const long long kv_blocks = static_cast<long long>(B) * K * n_kvt;
+  const long long total = static_cast<long long>(B) * H * S_pad;
+  const long long dot_blocks = (total + kDotThreads - 1) / kDotThreads;
+  if (dq_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL || dot_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(BT::kSmemDQ));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(BT::kSmemDKV));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dot_kernel<<<static_cast<unsigned>(dot_blocks), kDotThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), dsum, S,
+      S_pad, H, HD, total);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dq_kernel<HD><<<static_cast<unsigned>(dq_blocks), kBThreads, BT::kSmemDQ, stream>>>(
+      tq128, tk64, tv64, tdo128, lse, dsum, static_cast<__nv_bfloat16*>(dq), S, S_pad, H, K,
+      B * H, n_qt, causal, window);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<HD>
+      <<<static_cast<unsigned>(kv_blocks), kBThreads, BT::kSmemDKV, stream>>>(
+          tq64, tk128, tv128, tdo64, lse, dsum, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), S, S_pad, H, K, B * K, causal, window);
+  return cudaGetLastError();
+}
+
+bool train_shape_ok(int B, int S, int S_pad, int H, int K) {
+  return B >= 1 && S >= 1 && H >= 1 && K >= 1 && H % K == 0 && S_pad % kBQ == 0 && S_pad >= S &&
+         S_pad < S + kBQ;
 }
 
 }  // namespace
@@ -763,8 +1338,48 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   if (dtype_code == kF32)
     return launch_hd<float>(q, k, v, o, B, S, H, K, hd, causal, window, scale, s);
   if (dtype_code == kBF16)
-    return launch_bf16_hd(q, k, v, o, B, S, H, K, hd, causal, window, scale, s);
+    return launch_bf16_hd<false>(q, k, v, o, nullptr, B, S, 0, H, K, hd, causal, window, scale,
+                                 s);
   return cudaErrorInvalidValue;
+}
+
+// Training forward, bf16 only: q (B,S,H,hd) already scaled by hd^-0.5, k
+// and v (B,S,K,hd), all contiguous and 16-byte aligned -> o (B,S,H,hd) and
+// lse (B*H, S_pad) f32, the log2 of each row's sum of 2^(s log2 e), written
+// for every row below S_pad (S_pad: S rounded up to 128).
+int flash_attention_train_forward(const void* q, const void* k, const void* v, void* o,
+                                  float* lse, int B, int S, int S_pad, int H, int K, int hd,
+                                  int causal, int window, void* stream) {
+  if (!train_shape_ok(B, S, S_pad, H, K)) return cudaErrorInvalidValue;
+  return launch_bf16_hd<true>(q, k, v, o, lse, B, S, S_pad, H, K, hd, causal, window, 1.f,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Training backward, bf16 only, the forward's inputs and outputs with dout
+// (B,S,H,hd) -> dq (of the scaled q), dk, dv in their inputs' shapes, bf16;
+// dsum (B*H, S_pad) f32 is scratch (D = rowsum(dO o O)).  Three launches:
+// D, then dQ, then dK and dV.
+int flash_attention_train_backward(const void* q, const void* k, const void* v, const void* o,
+                                   const void* dout, const float* lse, float* dsum, void* dq,
+                                   void* dk, void* dv, int B, int S, int S_pad, int H, int K,
+                                   int hd, int causal, int window, void* stream) {
+  if (!train_shape_ok(B, S, S_pad, H, K)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16:
+      return launch_bwd<16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, S_pad, H, K, causal,
+                            window, s);
+    case 32:
+      return launch_bwd<32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, S_pad, H, K, causal,
+                            window, s);
+    case 64:
+      return launch_bwd<64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, S_pad, H, K, causal,
+                            window, s);
+    case 128:
+      return launch_bwd<128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, S, S_pad, H, K, causal,
+                             window, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -20,7 +20,8 @@ from repro_torch.kernels import autotune, wire
 from repro_torch.kernels.coded_reduce import coded_reduce as _coded_reduce_kernel
 from repro_torch.kernels.coded_reduce import coded_reduce_torch
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_kernel
-from repro_torch.kernels.flash_attention import flash_attention_torch
+from repro_torch.kernels.flash_attention import flash_attention_torch, flash_attention_train_torch
+from repro_torch.kernels.flash_attention import flash_attention_train as _flash_train_kernel
 from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_torch
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan_kernel
 
@@ -74,11 +75,26 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int | None = None, impl: str | None = None,
 ) -> torch.Tensor:
-    """Forward-only online-softmax attention: q (B,S,H,hd), k / v
-    (B,S,K,hd) -> (B,S,H,hd) in q's dtype.  No autograd on the kernel."""
+    """Prefill's online-softmax attention, forward only: q (B,S,H,hd), k /
+    v (B,S,K,hd) -> (B,S,H,hd) in q's dtype.  No autograd on the kernel."""
     if _resolve(impl, q) == "torch":
         return flash_attention_torch(q, k, v, causal=causal, window=window)
     return _flash_attention_kernel(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_train(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: int | None = None, impl: str | None = None,
+) -> torch.Tensor:
+    """Training attention with the model's rounding, differentiable either
+    way: q (B,S,H,hd) already scaled by hd^-0.5, k / v (B,S,K,hd) ->
+    (B,S,H,hd).  The kernels (bf16; they raise on what they do not take)
+    through ``FlashAttentionTrainFn``, the plain version (the model's
+    chain) by autograd.  ``models.attention`` decides which and passes
+    "cuda" or "torch"."""
+    if _resolve(impl, q) == "torch":
+        return flash_attention_train_torch(q, k, v, causal=causal, window=window)
+    return _flash_train_kernel(q, k, v, causal=causal, window=window)
 
 
 def ssd_scan(

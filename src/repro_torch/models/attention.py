@@ -13,7 +13,13 @@ the hand-written sm_90a kernel or its plain version, as ``impl`` picks
 there (None: by device).  Those keep p in f32 and scale q in f32,
 so in bf16 they round differently from the model's own attention (by about
 one bf16 ulp of p and of the output); in f32 they agree to summation order.
-Training keeps the model's own attention: the kernel has no backward.
+Training runs ``kernels.ops.flash_attention_train``: the hand-written
+forward and backward, with the model's rounding, where :func:`train_kernel`
+says the kernels take the tensors (plain bf16 tensors on the card with a
+head size in ``HEAD_DIMS`` and ``impl`` not "torch"), and its plain
+version, the model's own chain, everywhere else (the CPU, f32, hubert's
+head size, ``impl="torch"``).  The dry run's DTensors run the same chain
+with the head split and the batch anchored by ``models.sharding``.
 
 Sliding windows (mixtral): train and prefill mask ``kpos > qpos - window``
 (the flash kernel takes the window too); prefill returns a RING cache of
@@ -38,10 +44,12 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.sharding import on_cache_shards, shard_batch, split_dim
+from repro_torch.obs.trace import NULL_SPAN
 
-__all__ = ["NEG_INF", "attention_decode", "attention_forward"]
+__all__ = ["NEG_INF", "attention_decode", "attention_forward", "train_kernel"]
 
 NEG_INF = -1e30
 
@@ -78,6 +86,33 @@ def _neg_inf(s: torch.Tensor) -> torch.Tensor:
     return torch.full((), NEG_INF, dtype=s.dtype, device=s.device)
 
 
+def train_kernel(x: torch.Tensor, head_dim: int, impl: str | None) -> bool:
+    """Whether training attention on tensors like ``x`` (its q, k and v)
+    runs the hand-written kernels: a plain (not DTensor) bf16 tensor on
+    the card, a head size the kernels are built for, and ``impl`` not
+    "torch"."""
+    return (impl != "torch" and not isinstance(x, DTensor) and x.is_cuda
+            and x.dtype == torch.bfloat16 and head_dim in HEAD_DIMS)
+
+
+def _sharded_chain(q, k, v, kpos, *, n_kv, head_dim, causal, window) -> torch.Tensor:
+    """The model's own chain on DTensors (``flash_attention_train_torch``'s
+    arithmetic): the head split by ``split_dim``, which gathers a head dim
+    that the mesh cannot split, and the output's batch anchored.  q (B, S,
+    H, hd) unscaled, k / v (B, S, K, hd), kpos (S,) -> (B, S, H*hd)."""
+    S = q.shape[1]
+    qh = split_dim(q, 2, (n_kv, q.shape[2] // n_kv)) * (head_dim**-0.5)
+    s = _gqa_scores(qh, k)  # (B, K, G, S, S)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= kpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > kpos[:, None] - window
+    if causal or window is not None:
+        s = torch.where(mask, s, _neg_inf(s))
+    return shard_batch(_gqa_out(torch.softmax(s, dim=-1), v))
+
+
 def attention_forward(
     params: Params,
     x: torch.Tensor,
@@ -94,6 +129,7 @@ def attention_forward(
     cache_len: int | None = None,
     flash: bool = False,
     impl: str | None = None,
+    region=NULL_SPAN,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """Train / prefill attention.  x: (B, S, d); positions: (S,) or (B, S).
     Returns ``(out (B, S, d), cache)``; the cache is ``{"k", "v"}`` when
@@ -102,9 +138,13 @@ def attention_forward(
     the (B, window, K, hd) ring.
 
     ``flash`` runs ``ops.flash_attention`` with ``impl`` in place of the
-    model's own attention (the training path)."""
+    model's own attention (prefill).  Without it (training),
+    ``ops.flash_attention_train`` runs the kernels where
+    :func:`train_kernel` admits q and its plain version elsewhere, and
+    DTensors run :func:`_sharded_chain`; the choice is set on ``region``
+    (the layer's ``device.mixer`` span) as ``impl``, "kernel" or
+    "plain"."""
     B, S, _ = x.shape
-    G = n_heads // n_kv
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
     pos = positions.expand(B, S) if positions.dim() == 1 else positions
     q = apply_rope(q, pos, rotary_dim=rotary_dim, theta=rope_theta)
@@ -113,18 +153,18 @@ def attention_forward(
         o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                 causal=causal, window=window, impl=impl)
         out = o.reshape(B, S, n_heads * head_dim)
+    elif isinstance(q, DTensor):
+        region.set(impl="plain")
+        # positions are identical across the batch
+        out = _sharded_chain(q, k, v, pos[0], n_kv=n_kv, head_dim=head_dim, causal=causal,
+                             window=window)
     else:
-        qh = split_dim(q, 2, (n_kv, G)) * (head_dim**-0.5)
-        s = _gqa_scores(qh, k)  # (B, K, G, S, S)
-        kpos = pos[0]  # positions are identical across the batch
-        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
-        if causal:
-            mask &= kpos[None, :] <= kpos[:, None]
-        if window is not None:
-            mask &= kpos[None, :] > kpos[:, None] - window
-        if causal or window is not None:
-            s = torch.where(mask, s, _neg_inf(s))
-        out = shard_batch(_gqa_out(torch.softmax(s, dim=-1), v))
+        kernel = train_kernel(q, head_dim, impl)
+        region.set(impl="kernel" if kernel else "plain")
+        o = ops.flash_attention_train((q * head_dim**-0.5).contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=causal, window=window,
+                                      impl="cuda" if kernel else "torch")
+        out = o.reshape(B, S, n_heads * head_dim)
     out = out @ params["wo"]
     cache = None
     if return_cache:

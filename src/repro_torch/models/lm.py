@@ -183,9 +183,10 @@ class LM:
     None for the kernel on a CUDA tensor and the plain version on a CPU
     one, ``"torch"`` for the plain version anywhere.  ``attn_impl`` picks
     the attention of :meth:`prefill` the same way (the flash kernel or its
-    plain version); :meth:`forward`, the training path, always runs the
-    model's own attention (the kernel has no backward), and decode runs
-    plain attention over the cache."""
+    plain version) and of :meth:`forward`, the training path: the training
+    kernels (forward and backward) where ``attention.train_kernel`` admits
+    the tensors, the model's own chain otherwise and with ``"torch"``.
+    Decode runs plain attention over the cache."""
 
     def __init__(self, cfg: ModelConfig, ssd_impl: str | None = None,
                  attn_impl: str | None = None):
@@ -278,7 +279,8 @@ class LM:
             # (f32, whose .float() is x itself); the residual's arrives first,
             # so the backward span closes at the same point
             x = region.input(x)
-            out, new_cache = self._mixer(spec, bp, x, positions, mode, cache, pos, cache_len)
+            out, new_cache = self._mixer(spec, bp, x, positions, mode, cache, pos, cache_len,
+                                         region)
             out = region.output(out)
         # a row-parallel output (wo, out_proj, w_down over 'model') is a
         # pending sum: reduced here, as Megatron's all-reduce, so the norm
@@ -304,9 +306,11 @@ class LM:
 
     def _mixer(self, spec: LayerSpec, bp: dict[str, torch.Tensor], x: torch.Tensor,
                positions: torch.Tensor, mode: str, cache: dict | None, pos: torch.Tensor | None,
-               cache_len: int | None):
+               cache_len: int | None, region=NULL_SPAN):
         """The mixer's norm, attention or mamba2 block and output projection:
-        (out, the layer's cache or None)."""
+        (out, the layer's cache or None).  Training attention sets which
+        implementation ran on ``region``, the layer's ``device.mixer``
+        span."""
         cfg = self.cfg
         h = rms_norm(x, bp["mixer_norm.scale"], cfg.norm_eps)
         if spec.mixer == "attn":
@@ -318,7 +322,8 @@ class LM:
                 prefill = mode == "prefill"
                 out, new_cache = attention_forward(
                     _sub(bp, "attn."), h, positions, causal=cfg.causal, return_cache=prefill,
-                    cache_len=cache_len, flash=prefill, impl=self.attn_impl, **kw,
+                    cache_len=cache_len, flash=prefill, impl=self.attn_impl, region=region,
+                    **kw,
                 )
         else:
             kw = dict(d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
@@ -336,7 +341,8 @@ class LM:
 
     def _mixer_span(self, spec: LayerSpec, x: torch.Tensor, layer: int):
         """``device.mixer`` with the shape that sets its work: attention's
-        (B, S, d_model, heads, kv heads, head_dim, window), or the SSD's
+        (B, S, d_model, heads, kv heads, head_dim, window; the attention
+        sets ``impl``, "kernel" or "plain"), or the SSD's
         ``ssd_scan`` call (B, S, H, P, G, N, its chunk and the bytes of a
         B/C element; the scan pads S to a multiple of the chunk)."""
         cfg = self.cfg

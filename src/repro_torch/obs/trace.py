@@ -174,6 +174,11 @@ class _DeviceSpan:
         self._bwd = None
         self._grad = False
 
+    def set(self, **args) -> "_DeviceSpan":
+        """More args, known only once the region's work has started."""
+        self._args.update(args)
+        return self
+
     def __enter__(self) -> "_DeviceSpan":
         tr = self._tr
         recompute, self._grad = _autograd_state()

@@ -5,8 +5,12 @@ over the sweep and tolerances of ``tests/test_kernels.py``; ragged S, a
 window of 1 and a window wider than S against ``attention_ref`` only (the
 Pallas kernel asks S % block == 0); the port's ``attention_ref``; the
 model-level check; and the wrapper's and ``ops``' routing and refusals on
-the CPU.  The CUDA kernel itself is held against the plain version on the
-card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
+the CPU.  The training pair: its plain version bit-equal to the model's own
+chain (forward and gradients), an emulation of the backward kernels'
+rounding against f32 autograd, and the route (the CPU, ``attn_impl="torch"``
+and a head size the kernels lack never launch).  The CUDA kernels
+themselves are held against the plain versions on the card
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
 import jax
@@ -192,3 +196,153 @@ def test_tensor_core_precision_scheme_holds_one_bf16_spacing(scheme, within):
     assert (over == 0) == within, f"{scheme}: {over} of {ref.numel()} outputs over one spacing"
     if within:
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=2.0**-7)
+
+
+# -- training ------------------------------------------------------------------
+
+
+def _model_attention(params, x, kw, core=None):
+    """``attention_forward``'s training output, or the same projections
+    and rope around ``core(q scaled, k, v)`` in place of its attention
+    (``"sharded"``: the chain that DTensors run, on plain tensors)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_rope
+
+    if core is None:
+        return attn.attention_forward(params, x, torch.arange(x.shape[1]), **kw)[0]
+    B, S, _ = x.shape
+    H, K, hd = kw["n_heads"], kw["n_kv"], kw["head_dim"]
+    q, k, v = attn._project_qkv(params, x, H, K, hd)
+    pos = torch.arange(S).expand(B, S)
+    q = apply_rope(q, pos, rotary_dim=kw["rotary_dim"], theta=kw["rope_theta"])
+    k = apply_rope(k, pos, rotary_dim=kw["rotary_dim"], theta=kw["rope_theta"])
+    if core == "sharded":
+        return attn._sharded_chain(q, k, v, pos[0], n_kv=K, head_dim=hd, causal=kw["causal"],
+                                   window=kw.get("window")) @ params["wo"]
+    o = core(q * hd**-0.5, k, v, causal=kw["causal"], window=kw.get("window"))
+    return o.reshape(B, S, H * hd) @ params["wo"]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_train_plain_is_bit_equal_to_the_model_chain(causal, window, dtype):
+    """The model's training attention (which runs the training pair's
+    plain version off the kernels), that plain version itself, through
+    ``ops`` and through the CPU's ``flash_attention_train``, against the
+    chain that DTensors run: the same output and the same gradients of x
+    and of every weight, bit for bit, so the CPU's LM losses and gradients
+    do not move from the model's own chain."""
+    H, K, hd, d, S = 6, 2, 16, 32, 24
+    r = np.random.default_rng(5)
+    params = {n: torch.from_numpy(r.normal(size=shape).astype(np.float32) * d**-0.5).to(dtype)
+              for n, shape in (("wq", (d, H * hd)), ("wk", (d, K * hd)), ("wv", (d, K * hd)),
+                               ("wo", (H * hd, d)))}
+    x = torch.from_numpy(r.normal(size=(2, S, d)).astype(np.float32)).to(dtype)
+    kw = dict(n_heads=H, n_kv=K, head_dim=hd, rotary_dim=hd, rope_theta=1e4, causal=causal,
+              window=window)
+    outs, grads = [], []
+    for core in ("sharded", None, fa.flash_attention_train_torch,
+                 lambda *a, **k: ops.flash_attention_train(*a, **k, impl="torch"),
+                 fa.flash_attention_train):
+        leaves = {n: w.clone().requires_grad_() for n, w in params.items()}
+        xi = x.clone().requires_grad_()
+        out = _model_attention(leaves, xi, kw, core)
+        out.float().square().sum().backward()
+        outs.append(out.detach())
+        grads.append([xi.grad] + [leaves[n].grad for n in sorted(leaves)])
+    for out, g in zip(outs[1:], grads[1:]):
+        assert torch.equal(out, outs[0])
+        for a, b in zip(g, grads[0]):
+            assert torch.equal(a, b)
+
+
+def _emulate_train_backward(q, k, v, do, scheme):
+    """The training backward kernels' arithmetic in f32, causal, before the
+    outputs' rounding: P from the f32 scores, the forward's output rounded
+    to bf16 (P unnormalised rounded once, as the forward's P.V), D =
+    rowsum(dO o O), dS = P o (dP - D) entering dQ and dK split into bf16
+    hi + lo (``"split"``, as the kernels) or rounded once (``"bf16_once"``)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    f32 = torch.float32
+    qg = q.to(f32).reshape(B, S, K, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(f32))
+    pos = torch.arange(S)
+    s = torch.where(pos[None, :] <= pos[:, None], s, torch.full((), fa.NEG_INF))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+    o = torch.einsum("bkgqs,bskh->bqkgh", e.to(torch.bfloat16).to(f32), v.to(f32))
+    o = (o / l.permute(0, 3, 1, 2, 4)).to(torch.bfloat16).to(f32)
+    dog = do.to(f32).reshape(B, S, K, G, hd)
+    D = (dog * o).sum(-1).permute(0, 2, 3, 1)[..., None]
+    p = e / l
+    ds = p * (torch.einsum("bqkgh,bskh->bkgqs", dog, v.to(f32)) - D)
+    hi = ds.to(torch.bfloat16).to(f32)
+    parts = [hi, (ds - hi).to(torch.bfloat16).to(f32)] if scheme == "split" else [hi]
+    dq = sum(torch.einsum("bkgqs,bskh->bqkgh", x, k.to(f32)) for x in parts)
+    dk = sum(torch.einsum("bkgqs,bqkgh->bskh", x, qg) for x in parts)
+    return dq.reshape(B, S, H, hd), dk
+
+
+@pytest.mark.parametrize("scheme,within", [("split", True), ("bf16_once", False)])
+def test_train_backward_precision_scheme_holds_f32_autograd(scheme, within):
+    """The training backward's precision scheme against f32 autograd of the
+    plain version, at smollm-360m's heads (B=1, S=512, H=15, K=5, hd=64,
+    causal): the relative error of dq and dk (Frobenius norm) within
+    1.3e-3.  With dS split into bf16 hi + lo the error left is D's, from
+    the bf16 output (about 9e-4 here); dS rounded once to bf16 adds 2^-9 of
+    each entry, which a row's sum (0: the softmax's gradient) does not
+    cancel, and reads about 1.9e-3, which shows the hold tells the two
+    apart."""
+    r = np.random.default_rng(15)
+    q, k, v, do = [torch.from_numpy(r.normal(size=(1, 512, n, 64)).astype(np.float32))
+                   .to(torch.bfloat16) for n in (15, 5, 5, 15)]
+    q = q * 64**-0.5
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention_train_torch(*leaves, causal=True).backward(do.float())
+    dq, dk = _emulate_train_backward(q, k, v, do, scheme)
+    for name, got, ref in (("dq", dq, leaves[0].grad), ("dk", dk, leaves[1].grad)):
+        err = float((got - ref).norm() / ref.norm())
+        assert (err <= 1.3e-3) == within, f"{scheme}: {name} relative error {err:.3e}"
+
+
+def test_train_route_never_launches_off_the_kernels_inputs():
+    """The route: CPU tensors, ``attn_impl="torch"``, f32 and a head size the
+    kernels lack (hubert's 80) keep the model's chain; an LM training step
+    on the CPU launches neither training kernel, and its mixer spans say
+    ``impl="plain"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import train_kernel
+    from repro_torch.models.lm import build_model
+    from repro_torch.obs import Tracer
+
+    x = torch.zeros(1, 2, 8, dtype=torch.bfloat16)
+    assert not train_kernel(x, 64, None)
+    assert not train_kernel(x, 64, "cuda")
+    meta = torch.zeros(1, 2, 8, dtype=torch.bfloat16, device="meta")
+    assert not train_kernel(meta, 64, None)
+    before = (fa.flash_attention_train_fwd.launches, fa.flash_attention_train_bwd.launches)
+    for arch, impl in (("smollm-360m", None), ("smollm-360m", "torch"), ("hubert-xlarge", None)):
+        cfg = get_config(arch).reduced()
+        cfg = type(cfg)(**{**cfg.__dict__, "dtype": "bfloat16", "n_layers": 2})
+        model = build_model(cfg, attn_impl=impl)
+        tracer = Tracer()
+        model.tracer = tracer
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        leaves = {n: p.requires_grad_() for n, p in params.items()}
+        if cfg.frontend == "audio":
+            batch = {"frames": torch.randn(2, 8, cfg.d_model), "labels": torch.zeros(2, 8).long()}
+        else:
+            toks = torch.randint(0, cfg.vocab, (2, 8))
+            batch = {"tokens": toks, "labels": toks}
+        model.seq_losses(leaves, batch).sum().backward()
+        tracer.sync_device()
+        spans = [r for r in tracer.records("span") if r["name"] == "device.mixer"]
+        assert spans and {r["args"]["impl"] for r in spans} == {"plain"}
+    assert (fa.flash_attention_train_fwd.launches, fa.flash_attention_train_bwd.launches) == before
+    q, k, v = _inputs(16, 4, 2, 16, "bf16", seed=2)[0]
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.flash_attention_train(q, k, v, impl="cuda")
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_attention_train(*(torch.zeros(1, 16, n, 80) for n in (4, 2, 2)))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions and the
 wire format's bit oracle, on the card: coded_reduce, the int8 wire encode
-and decode, the SSD scan (with its autograd Function) and flash attention;
+and decode, the SSD scan (with its autograd Function), flash attention
+(prefill's forward, and training's forward and backward under autograd);
 and a reduced serving run whose prefill launches the kernels; every
 launch shape of coded_reduce and ``impl="best"``'s tuned one bit-equal to
 the default launch; the engine's ``host_pack`` on the card; the model's
@@ -724,6 +725,165 @@ def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda_device):
         flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+# -- flash attention, training ---------------------------------------------------
+
+_LOG2E = 1.4426950408889634
+
+
+def _train_inputs(B, S, H, K, hd, dev, seed):
+    """bf16 q (scaled by hd^-0.5 in bf16, as the model scales it), k, v and
+    an output gradient do."""
+    r = np.random.default_rng(seed)
+    q, k, v, do = [torch.from_numpy(r.normal(size=(B, S, n, hd)).astype(np.float32))
+                   .to(torch.bfloat16).to(dev) for n in (H, K, K, H)]
+    return q * hd**-0.5, k, v, do
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _autograd(fn, q, k, v, do, dtype, **kw):
+    leaves = [t.detach().to(dtype, copy=True).requires_grad_() for t in (q, k, v)]
+    o = fn(*leaves, **kw)
+    o.backward(do.to(dtype))
+    return [o.detach()] + [t.grad for t in leaves]
+
+
+def _train_vs_plain(q, k, v, do, causal, window):
+    """The training kernels (one forward, one backward) against autograd of
+    the plain version (the model's chain) on the same bf16 inputs, and of
+    the same chain in f32 (no rounding anywhere).  o, dq, dk and dv each:
+    the kernels' relative error (Frobenius) to f32 at most 1.1x the plain
+    chain's plus 1e-5, since the kernels round no operand below the chain
+    (P to bf16 as the model, dS split into hi + lo where the chain keeps
+    f32; the chain rounds dP to bf16, which the kernels do not) and differ
+    in summation order; and within 5e-3 of the plain chain's (each side
+    about 2.3e-3 from f32, the outputs' bf16 rounding).  lse against the
+    f32 log-sum-exp in log2 units, atol 1e-4: ex2.approx and the order of
+    f32 sums move it by a few f32 spacings."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kw = dict(causal=causal, window=window)
+    before = (fa.flash_attention_train_fwd.launches, fa.flash_attention_train_bwd.launches)
+    kern = _autograd(fa.flash_attention_train, q, k, v, do, torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_train_fwd.launches, fa.flash_attention_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = _autograd(fa.flash_attention_train_torch, q, k, v, do, torch.bfloat16, **kw)
+    ref = _autograd(fa.flash_attention_train_torch, q, k, v, do, torch.float32, **kw)
+    for name, a, p, r in zip(("o", "dq", "dk", "dv"), kern, plain, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == p.shape
+        assert torch.isfinite(a.float()).all(), name
+        ek, ep = _rel(a, r), _rel(p, r)
+        assert ek <= 1.1 * ep + 1e-5, f"{name}: kernels {ek:.3e} from f32, plain chain {ep:.3e}"
+        assert _rel(a, p) <= 5e-3, f"{name}: {_rel(a, p):.3e} from the plain chain"
+    del plain, ref
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    _, lse = fa.flash_attention_train_fwd(q, k, v, causal, window)
+    s = torch.einsum("bqkgh,bskh->bkgqs", q.float().reshape(B, S, K, H // K, hd), k.float())
+    i = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= i[None, :] <= i[:, None]
+    if window is not None:
+        mask &= i[None, :] > i[:, None] - window
+    s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    expect = (torch.logsumexp(s, -1) * _LOG2E).reshape(B, H, S)
+    torch.testing.assert_close(lse[..., :S], expect, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window", [
+    (2, 2048, 15, 5, 64, True, None),     # smollm-360m's heads at its context
+    (1, 512, 32, 8, 128, True, None),     # llama/mixtral/qwen-like 32/8 at hd 128
+    (1, 4224, 32, 8, 128, True, 4096),    # mixtral's window, past one window
+    (1, 700, 8, 2, 128, True, 129),       # a window across the 64- and 128-row tiles
+    (2, 333, 6, 2, 32, False, None),      # not causal
+    (1, 300, 4, 2, 64, False, 32),        # a window without the causal mask
+    (1, 1000, 15, 5, 64, True, None),     # ragged S at smollm's heads
+    (2, 200, 6, 2, 16, True, None),       # hd 16, ragged, a 32-byte swizzle
+    (1, 77, 3, 3, 64, True, None),        # S under one tile, G = 1
+], ids=["smollm-s2048", "h32k8-hd128", "mixtral-window", "window129", "not-causal",
+        "window-not-causal", "ragged-s1000", "hd16", "s77-g1"])
+def test_cuda_flash_attention_train_matches_plain(cuda_device, B, S, H, K, hd, causal, window):
+    _train_vs_plain(*_train_inputs(B, S, H, K, hd, cuda_device, S + H + hd), causal, window)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_train_backward_is_deterministic(cuda_device):
+    """No float atomics: two backward calls on the same inputs give the
+    same bits (smollm-360m's heads, S 2048, causal)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = _train_inputs(2, 2048, 15, 5, 64, cuda_device, 1)
+    o, lse = fa.flash_attention_train_fwd(q, k, v, True, None)
+    a = fa.flash_attention_train_bwd(q, k, v, o, do, lse, True, None)
+    b = fa.flash_attention_train_bwd(q, k, v, o, do, lse, True, None)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_train_in_a_traced_lm_step(cuda_device):
+    """A bf16 reduced smollm under full remat, two traced fused steps on the
+    card: every attention layer's pass runs the kernels (the spans say
+    ``impl="kernel"``), the forward launched twice a layer and step
+    (forward and remat's recompute) and the backward once, and no step's
+    loss is non-finite."""
+    import dataclasses
+
+    from repro_torch.configs import CodingConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.lm import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.train.trainer import CodedTrainer
+
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), remat="full",
+                              dtype="bfloat16")
+    tracer = Tracer()
+    tr = CodedTrainer(build_model(cfg), CodingConfig(scheme="heter_aware", s=1),
+                      TrainConfig(), m=4, part_mb=2, device=cuda_device, trace=tracer)
+    data = SyntheticData(cfg, k=tr.k, part_mb=2, seq_len=64, seed=0)
+    state = tr.init_state(0)
+    fwd0, bwd0 = fa.flash_attention_train_fwd.launches, fa.flash_attention_train_bwd.launches
+    steps = 2
+    for i in range(steps):
+        state, met = tr.step(state, data.batch(i))
+        assert np.isfinite(met["loss"])
+    fwd = fa.flash_attention_train_fwd.launches - fwd0
+    bwd = fa.flash_attention_train_bwd.launches - bwd0
+    spans = [r for r in tracer.records("span")
+             if r["name"] == "device.mixer" and r["args"]["kind"] == "attn"]
+    passes = {p: sum(r["args"]["pass"] == p for r in spans) for p in ("fwd", "recompute", "bwd")}
+    assert {r["args"]["impl"] for r in spans} == {"kernel"}
+    assert passes == {p: steps * cfg.n_layers for p in passes}
+    assert (fwd, bwd) == (passes["fwd"] + passes["recompute"], passes["bwd"])
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_train_refuses_before_any_launch(cuda_device):
+    """f32, a head size the kernels lack, a view that is not contiguous and
+    a base that is not 16-byte aligned raise before any launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = _train_inputs(1, 64, 4, 2, 32, cuda_device, 0)
+    before = (fa.flash_attention_train_fwd.launches, fa.flash_attention_train_bwd.launches)
+    with pytest.raises(TypeError, match="bf16"):
+        fa.flash_attention_train(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head size"):
+        fa.flash_attention_train(*_train_inputs(1, 64, 4, 2, 80, cuda_device, 0)[:3])
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_train(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_train(flat[1:].view(q.shape).copy_(q), k, v)
+    assert (fa.flash_attention_train_fwd.launches,
+            fa.flash_attention_train_bwd.launches) == before
 
 
 @pytest.mark.gpu
