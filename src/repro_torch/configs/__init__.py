@@ -17,13 +17,20 @@ _ARCH_MODULES = {
 
 ARCHS = tuple(_ARCH_MODULES)
 
+# configs of the port alone: get_config resolves them, but they are not in
+# ARCHS, whose dry-run cells are the JAX package's list
+_PORT_ONLY = {
+    "granite-4.0-h-small": "granite_4_0_h_small",
+}
+
 
 def get_config(arch: str) -> ModelConfig:
     import importlib
 
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
-    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    modules = {**_ARCH_MODULES, **_PORT_ONLY}
+    if arch not in modules:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(modules)}")
+    mod = importlib.import_module(f"repro_torch.configs.{modules[arch]}")
     return mod.CONFIG
 
 

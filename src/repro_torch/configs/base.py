@@ -21,6 +21,8 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
     rope_theta: float = 10000.0
     rotary_fraction: float = 1.0  # chatglm "2d" RoPE rotates half the dims
+    position_embedding: str = "rope"  # "rope" | "nope" (granite: no positional embedding)
+    attention_multiplier: float = 0.0  # the score scale; 0 -> head_dim ** -0.5
     qkv_bias: bool = False
     window: int | None = None  # sliding-window attention (mixtral)
     causal: bool = True
@@ -33,8 +35,16 @@ class ModelConfig:
     aux_coef: float = 0.01
     capacity_factor: float = 1.25
     # "dense": GShard one-hot dispatch (GSPMD-friendly, the distributed
-    # default); "sort": argsort/scatter dispatch (lean single-device form)
+    # default); "sort": argsort/scatter dispatch (lean single-device form);
+    # "dropless": every (token, choice) pair on a held expert computed, no
+    # capacity (granite; models/moe.py::moe_apply_dropless)
     moe_dispatch: str = "dense"
+    # expert parallelism: this chip holds experts [expert_offset,
+    # expert_offset + experts_held) of n_experts (0: all of them); the
+    # router still scores all n_experts
+    experts_held: int = 0
+    expert_offset: int = 0
+    shared_d_ff: int = 0  # a shared SwiGLU expert beside the routed ones (0: none)
     # SSM (mamba2 / SSD)
     ssm_d_inner: int = 0
     ssm_heads: int = 0
@@ -52,8 +62,14 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     act: str = "silu"
+    # granite's scalars on the residual path: the embeddings times
+    # embedding_multiplier, each branch times residual_multiplier before
+    # its residual add, the logits divided by logits_scaling
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     dtype: str = "bfloat16"
-    remat: str = "full"  # "none" | "full" — activation checkpointing per block
+    remat: str = "full"  # "none" | "full" — activation checkpointing per layer
 
     @property
     def resolved_head_dim(self) -> int:
@@ -63,9 +79,21 @@ class ModelConfig:
 
     @property
     def rotary_dim(self) -> int:
+        """The rotated width of a head: 0 without positional embedding."""
+        if self.position_embedding == "nope":
+            return 0
         hd = self.resolved_head_dim
         r = int(hd * self.rotary_fraction)
         return r - (r % 2)
+
+    @property
+    def attn_scale(self) -> float:
+        return self.attention_multiplier or self.resolved_head_dim ** -0.5
+
+    @property
+    def n_held(self) -> int:
+        """Experts held here: ``experts_held``, or every expert."""
+        return self.experts_held or self.n_experts
 
     @property
     def supports_decode(self) -> bool:
@@ -93,6 +121,10 @@ class ModelConfig:
             n_experts=min(self.n_experts, 4),
             top_k=min(self.top_k, 2),
             expert_d_ff=128 if self.expert_d_ff else 0,
+            # a share of the experts stays a share: 1 of the 4
+            experts_held=1 if self.experts_held else 0,
+            expert_offset=0,
+            shared_d_ff=128 if self.shared_d_ff else 0,
             # no token dropping at toy scale so prefill/decode tests are exact
             capacity_factor=8.0 if self.n_experts else self.capacity_factor,
             ssm_d_inner=256 if self.ssm_d_inner else 0,

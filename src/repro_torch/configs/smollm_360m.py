@@ -1,5 +1,5 @@
 """smollm-360m [dense] — llama-arch small.
-[hf:HuggingFaceTB/SmolLM-135M; hf]  32L d_model=960 15H kv=5 d_ff=2560 vocab=49152."""
+[hf:HuggingFaceTB/SmolLM-360M; hf]  32L d_model=960 15H kv=5 d_ff=2560 vocab=49152."""
 
 from repro_torch.configs.base import ModelConfig
 

@@ -25,7 +25,8 @@ Three implementations of the same math:
 
 The numpy half (:class:`CodedPlan`, :func:`make_plan`, the host slot
 weights) is a copy of the JAX module's; the ``*_device`` functions are its
-in-jit twins as tensor gathers.
+in-jit twins as tensor gathers.  :func:`spread_copies_device`, which the
+engine's fused pass applies to its slot weights, has no JAX counterpart.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.coding import CodingScheme
 from repro_torch.core.decoding import Decoder
@@ -52,6 +54,7 @@ __all__ = [
     "support_slot_mask",
     "support_slot_mask_device",
     "uniform_weights",
+    "spread_copies_device",
     "pack_coded_batch",
     "pack_flat_device",
     "protocol_reference",
@@ -150,10 +153,30 @@ def slot_weights_device(
     slot_pids: torch.Tensor,
     k: int,
 ) -> torch.Tensor:
-    """On-device :func:`slot_weights`: W[w,s] = a_w·B[w,pid]·done[w,pid]/k.
+    """On-device :func:`slot_weights`: W[w,s] = a_w·B[w,pid]·done[w,pid]/k,
+    in the dtype ``a`` and ``slot_coeff`` promote to (f32 for f32 inputs).
     Callers without partial work pass an all-ones ``support``."""
     done = support_slot_mask_device(support, slot_pids, slot_mask)
-    return (a.float()[:, None] * slot_coeff * done / k).float()
+    return a[:, None] * slot_coeff * done / k
+
+
+def spread_copies_device(weights: torch.Tensor, slot_pids: torch.Tensor,
+                         slot_mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Slot weights (m, n_slots) with each partition's total spread evenly
+    over its copies that carry weight, returned in f32.  The copies are the
+    same rows, so the decoded gradient is the same; but an ill-conditioned
+    decode weights two copies by nearly opposite large numbers (Tandon's
+    cyclic B at m 4, s 1 reaches thousands for a partition whose total is
+    1/k), whose gradients a bf16 backward cannot cancel.  Pass weights in
+    f64 (the decode vector and B in f64): the totals are then exact to
+    about 1e-12, where f32 products leave errors of 1e-3 of a total.  A
+    slot of zero weight stays zero.  The sums are products with a one-hot
+    (slot, partition) matrix: deterministic."""
+    flat = weights.reshape(-1)
+    onehot = F.one_hot(slot_pids.reshape(-1), k).to(flat.dtype) * slot_mask.reshape(-1, 1)
+    live = (flat != 0).to(flat.dtype)
+    even = (flat @ onehot) / (live @ onehot).clamp(min=1)  # (k,)
+    return (live * (onehot @ even)).float().view_as(weights)
 
 
 def pack_flat_device(partition_batch: Batch, slot_pids: torch.Tensor, weights: torch.Tensor) -> Batch:

@@ -92,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True,
                     help="a config of repro_torch.configs (every family: e.g. "
                          "smollm-360m, mamba2-370m, moonshot-v1-16b-a3b, "
-                         "jamba-1.5-large-398b, internvl2-2b, hubert-xlarge)")
+                         "jamba-1.5-large-398b, granite-4.0-h-small, internvl2-2b, "
+                         "hubert-xlarge)")
     ap.add_argument("--reduced", action="store_true", help="smoke-scale config")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--scheme", default="heter_aware", choices=list(scheme_names()))

@@ -95,13 +95,15 @@ def train_kernel(x: torch.Tensor, head_dim: int, impl: str | None) -> bool:
             and x.dtype == torch.bfloat16 and head_dim in HEAD_DIMS)
 
 
-def _sharded_chain(q, k, v, kpos, *, n_kv, head_dim, causal, window) -> torch.Tensor:
+def _sharded_chain(q, k, v, kpos, *, n_kv, head_dim, causal, window,
+                   scale=None) -> torch.Tensor:
     """The model's own chain on DTensors (``flash_attention_train_torch``'s
     arithmetic): the head split by ``split_dim``, which gathers a head dim
     that the mesh cannot split, and the output's batch anchored.  q (B, S,
     H, hd) unscaled, k / v (B, S, K, hd), kpos (S,) -> (B, S, H*hd)."""
     S = q.shape[1]
-    qh = split_dim(q, 2, (n_kv, q.shape[2] // n_kv)) * (head_dim**-0.5)
+    scale = head_dim**-0.5 if scale is None else scale
+    qh = split_dim(q, 2, (n_kv, q.shape[2] // n_kv)) * scale
     s = _gqa_scores(qh, k)  # (B, K, G, S, S)
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
     if causal:
@@ -130,6 +132,7 @@ def attention_forward(
     flash: bool = False,
     impl: str | None = None,
     region=NULL_SPAN,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor] | None]:
     """Train / prefill attention.  x: (B, S, d); positions: (S,) or (B, S).
     Returns ``(out (B, S, d), cache)``; the cache is ``{"k", "v"}`` when
@@ -143,13 +146,16 @@ def attention_forward(
     :func:`train_kernel` admits q and its plain version elsewhere, and
     DTensors run :func:`_sharded_chain`; the choice is set on ``region``
     (the layer's ``device.mixer`` span) as ``impl``, "kernel" or
-    "plain"."""
+    "plain".  ``scale`` is the score scale q is multiplied by (None:
+    ``head_dim ** -0.5``); prefill at another scale runs the training
+    attention, as the prefill kernels scale by ``head_dim ** -0.5``."""
     B, S, _ = x.shape
+    scale = head_dim**-0.5 if scale is None else scale
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
     pos = positions.expand(B, S) if positions.dim() == 1 else positions
     q = apply_rope(q, pos, rotary_dim=rotary_dim, theta=rope_theta)
     k = apply_rope(k, pos, rotary_dim=rotary_dim, theta=rope_theta)
-    if flash:
+    if flash and scale == head_dim**-0.5:  # the prefill kernels scale by head_dim ** -0.5
         o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                 causal=causal, window=window, impl=impl)
         out = o.reshape(B, S, n_heads * head_dim)
@@ -157,11 +163,11 @@ def attention_forward(
         region.set(impl="plain")
         # positions are identical across the batch
         out = _sharded_chain(q, k, v, pos[0], n_kv=n_kv, head_dim=head_dim, causal=causal,
-                             window=window)
+                             window=window, scale=scale)
     else:
         kernel = train_kernel(q, head_dim, impl)
         region.set(impl="kernel" if kernel else "plain")
-        o = ops.flash_attention_train((q * head_dim**-0.5).contiguous(), k.contiguous(),
+        o = ops.flash_attention_train((q * scale).contiguous(), k.contiguous(),
                                       v.contiguous(), causal=causal, window=window,
                                       impl="cuda" if kernel else "torch")
         out = o.reshape(B, S, n_heads * head_dim)
@@ -210,6 +216,7 @@ def attention_decode(
     rotary_dim: int,
     rope_theta: float,
     window: int | None = None,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One-token decode.  x: (B, 1, d); pos: a 0-d int tensor (every row at
     one position) or (B,) (slot-indexed serving: each row at its own).
@@ -221,9 +228,11 @@ def attention_decode(
     cache is returned, as the JAX function returns its updated copy.  A
     write past the cache's end is dropped for a ``(B,)`` position (JAX's
     scatter drops it; a free serving slot's position runs on) and clamped
-    to the last row for a scalar one (``dynamic_update_slice`` clamps)."""
+    to the last row for a scalar one (``dynamic_update_slice`` clamps).
+    ``scale`` as :func:`attention_forward` takes it."""
     B = x.shape[0]
     G = n_heads // n_kv
+    scale = head_dim**-0.5 if scale is None else scale
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
     posb = pos[:, None] if pos.dim() else pos.expand(B, 1)
     q = apply_rope(q, posb, rotary_dim=rotary_dim, theta=rope_theta)
@@ -231,7 +240,7 @@ def attention_decode(
 
     kc, vc = cache["k"], cache["v"]
     if isinstance(kc, DTensor):
-        qh = split_dim(q, 2, (n_kv, G)) * (head_dim**-0.5)
+        qh = split_dim(q, 2, (n_kv, G)) * scale
         o = on_cache_shards(functools.partial(_decode_shard, window=window),
                             qh, k, v, kc, vc, pos)
         return o @ params["wo"], {"k": kc, "v": vc}
@@ -246,7 +255,7 @@ def attention_decode(
         kc.index_copy_(1, slot.reshape(1), k)
         vc.index_copy_(1, slot.reshape(1), v)
 
-    qh = split_dim(q, 2, (n_kv, G)) * (head_dim**-0.5)
+    qh = split_dim(q, 2, (n_kv, G)) * scale
     s = _gqa_scores(qh, kc)  # (B, K, G, 1, S_c)
     idx = torch.arange(S_c, device=x.device)
     pcol = pos[:, None] if pos.dim() else pos

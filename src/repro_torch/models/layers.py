@@ -77,8 +77,11 @@ def apply_rope(
 ) -> torch.Tensor:
     """Rotate the first ``rotary_dim`` dims of the head dimension.
 
-    x: (..., S, H, hd); positions: broadcastable to (..., S).
+    x: (..., S, H, hd); positions: broadcastable to (..., S).  A rotary
+    width of 0 (no positional embedding) returns x as it is.
     """
+    if rotary_dim == 0:
+        return x
     rot, keep = x[..., :rotary_dim], x[..., rotary_dim:]
     inv = rope_frequencies(rotary_dim, theta, x.device)
     ang = positions[..., None].float() * inv  # (..., S, rot/2)

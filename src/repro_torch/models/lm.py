@@ -14,26 +14,37 @@ reproduces ``jax.flatten_util.ravel_pytree``.  As in JAX, a per-layer
 A layer's mixer is attention (a sliding window where the config has one)
 or a mamba2 block, and its MLP dense (SiLU or GELU), MoE (``models/moe.py``,
 the form that ``cfg.moe_dispatch`` names) or none; jamba's period of 8 mixes
-all four.  The MoE load-balance loss is each layer's mean over batch rows,
-summed over layers, and ``seq_losses`` adds ``aux_coef`` times it to every
-sequence.  Frontends are the JAX package's stubs: audio takes ``frames``
+all four.  Granite's layers (HF ``GraniteMoeHybridDecoderLayer``) add a
+shared SwiGLU expert to the MoE's output (``cfg.shared_d_ff``), hold a
+share of the experts (``cfg.experts_held``, the dropless form), and scale
+the embeddings, each branch before its residual add and the logits
+(``cfg.embedding_multiplier``, ``residual_multiplier``,
+``logits_scaling``).  The MoE load-balance loss is each layer's mean over
+batch rows, summed over layers, and ``seq_losses`` adds ``aux_coef`` times
+it to every sequence.  Frontends are the JAX package's stubs: audio takes ``frames``
 (B, S, d) and has no ``embed`` leaf; vision prepends ``patches`` (B,
 n_patches, d) to the token embeddings, and its labels cover the text span.
 Activation checkpointing: with ``remat="full"`` (every full config; the
 reduced ones set ``"none"``) a training forward with grad enabled runs each
-repeat of the period under ``torch.utils.checkpoint`` (non-reentrant), the
-counterpart of JAX's ``jax.checkpoint`` of its scan body: only the
-repeat's input is kept, and its layers run again in the backward.  Serving
-(prefill, decode) is never checkpointed.
+layer under ``torch.utils.checkpoint`` (non-reentrant): only the layer's
+input is kept, and the layer runs again in the backward.  At a period of
+one layer that is JAX's ``jax.checkpoint`` of its scan body; a longer
+period (jamba's 8, granite's 10) keeps one input a layer where JAX keeps
+one a repeat, and computes the same numbers.  Serving (prefill, decode) is
+never checkpointed.
 
 Device regions: with a tracer installed (``LM.tracer``, the trainer's) the
 training path records ``device.embed``, per layer ``device.mixer`` (from
 the mixer's norm through its output projection; ``kind`` ``attn`` or
-``ssd`` with the shape that sets its work) and ``device.mlp``, and
+``ssd`` with the shape that sets its work) and ``device.mlp`` (a dropless
+MoE's with the routing's shape, ``impl`` and ``pairs``, the pairs routed to
+held experts, a device count read once the step has synchronized), and
 ``device.head_loss`` (final norm, logits, log-softmax, NLL and the
 weighted sum), each in its forward, recompute and backward pass
-(:meth:`repro_torch.obs.trace.Tracer.device_span`).  Tracing off adds no
-autograd node and the gradients are bit-equal either way.
+(:meth:`repro_torch.obs.trace.Tracer.device_span`); with a dropless MoE,
+the counter ``moe.expert_load_max`` once a step
+(:meth:`LM._record_expert_load`).  Tracing off adds no autograd node and
+the gradients are bit-equal either way.
 
 Sharding: :meth:`LM.param_specs` and :meth:`LM.fsdp_specs` give each
 parameter's layout as a tuple of mesh-axis names a dim (JAX's
@@ -64,7 +75,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention_decode, attention_forward
 from repro_torch.models.layers import dense_init, embed_init, mlp, rms_norm
-from repro_torch.models.moe import init_moe, moe_apply, moe_apply_dense
+from repro_torch.models.moe import init_moe, moe_apply, moe_apply_dense, moe_apply_dropless
 from repro_torch.models.sharding import (embedding, gather_data_shards, reduce_partial,
                                          shard_batch, unshard_dim)
 from repro_torch.models.ssm import init_mamba, mamba_decode, mamba_forward
@@ -198,6 +209,7 @@ class LM:
         self.ssd_impl = ssd_impl
         self.attn_impl = attn_impl
         self.tracer = NULL_TRACER  # the trainer installs its own
+        self._loads: list[torch.Tensor] = []  # a traced forward's held-expert pair counts
 
     # -- init ----------------------------------------------------------------
 
@@ -229,7 +241,14 @@ class LM:
         if spec.mlp != "none":
             block["mlp_norm"] = {"scale": torch.ones((n, d), dtype=dt, device=dev)}
         if spec.mlp == "moe":
-            block["moe"] = init_moe(gen, n, d, cfg.n_experts, cfg.expert_d_ff, dt, dev)
+            block["moe"] = init_moe(gen, n, d, cfg.n_experts, cfg.expert_d_ff, dt, dev,
+                                    held=cfg.experts_held or None)
+            if cfg.shared_d_ff:
+                block["shared"] = {
+                    "w_gate": stacked((d, cfg.shared_d_ff)),
+                    "w_up": stacked((d, cfg.shared_d_ff)),
+                    "w_down": stacked((cfg.shared_d_ff, d)),
+                }
         elif spec.mlp == "dense":
             block["mlp"] = {
                 "w_gate": stacked((d, cfg.d_ff)),
@@ -285,7 +304,7 @@ class LM:
         # a row-parallel output (wo, out_proj, w_down over 'model') is a
         # pending sum: reduced here, as Megatron's all-reduce, so the norm
         # and the next projections see whole activations (no-op unsharded)
-        x = x + reduce_partial(out)
+        x = x + self._branch(reduce_partial(out))
         aux = None
         if spec.mlp != "none":
             x = shard_batch(x)  # pins the MLP input's gradient (see sharding.py)
@@ -294,15 +313,50 @@ class LM:
                 x = region.input(x)
                 h = rms_norm(x, bp["mlp_norm.scale"], cfg.norm_eps)
                 if spec.mlp == "moe":
-                    moe_fn = moe_apply_dense if cfg.moe_dispatch == "dense" else moe_apply
-                    y, a = moe_fn(_sub(bp, "moe."), h, top_k=cfg.top_k,
-                                  capacity_factor=cfg.capacity_factor, act=cfg.act)
+                    y, a = self._moe(bp, h, region)
                     aux = a.mean()
                 else:
                     y = mlp(_sub(bp, "mlp."), h, cfg.act)
                 y = region.output(y)
-            x = x + reduce_partial(y)
+            x = x + self._branch(reduce_partial(y))
         return x, aux, new_cache
+
+    def _branch(self, y: torch.Tensor) -> torch.Tensor:
+        """A branch's output on its way to the residual add."""
+        rm = self.cfg.residual_multiplier
+        return y if rm == 1.0 else y * rm
+
+    def _moe(self, bp: dict[str, torch.Tensor], h: torch.Tensor, region=NULL_SPAN):
+        """The MoE on the normed input ``h`` in the form ``cfg.moe_dispatch``
+        names, plus the shared expert where the config has one: (y, aux
+        (B,)).  The dropless form sets ``pairs`` on ``region`` and keeps its
+        counts for the step's ``moe.expert_load_max`` when traced."""
+        cfg = self.cfg
+        if cfg.moe_dispatch == "dropless":
+            y, a, counts = moe_apply_dropless(_sub(bp, "moe."), h, top_k=cfg.top_k,
+                                              offset=cfg.expert_offset, act=cfg.act)
+            if region is not NULL_SPAN:
+                region.set(pairs=self.tracer.device_value(counts.sum()))
+                self._loads.append(counts)
+        else:
+            moe_fn = moe_apply_dense if cfg.moe_dispatch == "dense" else moe_apply
+            y, a = moe_fn(_sub(bp, "moe."), h, top_k=cfg.top_k,
+                          capacity_factor=cfg.capacity_factor, act=cfg.act)
+        if cfg.shared_d_ff:
+            y = y + mlp(_sub(bp, "shared."), h, cfg.act)
+        return y, a
+
+    def _record_expert_load(self) -> None:
+        """The counter ``moe.expert_load_max`` of a traced forward: in each
+        dropless MoE layer the most pairs a held expert got over the held
+        experts' mean (1 where none got any), the largest over the layers.
+        A device value, recorded once the step has synchronized."""
+        if self._loads:
+            c = torch.stack(self._loads).float()  # (layers, held)
+            mean = c.mean(1)
+            load = torch.where(mean > 0, c.amax(1) / mean.clamp(min=1e-30), torch.ones_like(mean))
+            self.tracer.device_counter("moe.expert_load_max", load.amax())
+        self._loads = []
 
     def _mixer(self, spec: LayerSpec, bp: dict[str, torch.Tensor], x: torch.Tensor,
                positions: torch.Tensor, mode: str, cache: dict | None, pos: torch.Tensor | None,
@@ -315,7 +369,8 @@ class LM:
         h = rms_norm(x, bp["mixer_norm.scale"], cfg.norm_eps)
         if spec.mixer == "attn":
             kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
-                      rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta, window=cfg.window)
+                      rotary_dim=cfg.rotary_dim, rope_theta=cfg.rope_theta, window=cfg.window,
+                      scale=cfg.attn_scale)
             if mode == "decode":
                 out, new_cache = attention_decode(_sub(bp, "attn."), h, cache, pos, **kw)
             else:
@@ -358,11 +413,20 @@ class LM:
         return self.tracer.device_span("device.mixer", device=x.device, layer=layer, **shape)
 
     def _mlp_span(self, spec: LayerSpec, x: torch.Tensor, layer: int):
+        """``device.mlp``; a dropless MoE's also with the routing's shape
+        (``experts``, ``held``, ``top_k``, ``expert_d_ff``, ``shared_d_ff``)
+        and ``impl`` "grouped", the route the model runs, which takes no
+        synchronize (the MoE sets ``pairs``)."""
         cfg = self.cfg
         d_ff = cfg.expert_d_ff if spec.mlp == "moe" else cfg.d_ff
+        extra = {}
+        if spec.mlp == "moe" and cfg.moe_dispatch == "dropless":
+            extra = dict(experts=cfg.n_experts, held=cfg.n_held, top_k=cfg.top_k,
+                         expert_d_ff=cfg.expert_d_ff, shared_d_ff=cfg.shared_d_ff,
+                         impl="grouped")
         return self.tracer.device_span("device.mlp", device=x.device, layer=layer, kind=spec.mlp,
                                        B=int(x.shape[0]), S=int(x.shape[1]),
-                                       d_model=cfg.d_model, d_ff=d_ff)
+                                       d_model=cfg.d_model, d_ff=d_ff, **extra)
 
     def _layers(self, params: Params) -> list[dict[str, torch.Tensor]]:
         """Per layer of the period, its stacked leaves under their names
@@ -382,14 +446,21 @@ class LM:
         cfg = self.cfg
         if cfg.frontend == "audio":
             return batch["frames"].to(self.dtype)
-        tok = reduce_partial(embedding(batch["tokens"].long(), mark(params["embed"])))
+        tok = self._scale_embed(reduce_partial(embedding(batch["tokens"].long(),
+                                                         mark(params["embed"]))))
         if cfg.frontend == "vision":
             return torch.cat([batch["patches"].to(tok.dtype), tok], dim=1)
         return tok
 
+    def _scale_embed(self, tok: torch.Tensor) -> torch.Tensor:
+        m = self.cfg.embedding_multiplier
+        return tok if m == 1.0 else tok * m
+
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         head = params["lm_head"] if "lm_head" in params else params["embed"].t()
-        return x @ head
+        logits = x @ head
+        s = self.cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
 
     def forward(
         self, params: Params, batch: dict[str, torch.Tensor]
@@ -419,30 +490,29 @@ class LM:
             x = region.output(self._embed(params, batch, region.input))
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        self._loads = []
         # one unbind per stacked leaf: its backward stacks the per-layer
         # grads once, instead of a full-size scatter per layer
         blocks = [{k: v.unbind(0) for k, v in layer.items()} for layer in self._layers(params)]
 
-        def repeat(x, aux, r):
-            for j, layers in enumerate(blocks):
-                x = shard_batch(x)  # re-anchor the batch sharding each block
-                x, a, _ = self._apply_block(
-                    self.plan[j], {k: v[r] for k, v in layers.items()}, x, positions,
-                    layer=r * self.period + j,
-                )
-                if a is not None:
-                    aux = aux + a
-            return x, aux
+        def layer(x, j, r):
+            x = shard_batch(x)  # re-anchor the batch sharding each block
+            x, a, _ = self._apply_block(self.plan[j], {k: v[r] for k, v in blocks[j].items()},
+                                        x, positions, layer=r * self.period + j)
+            return x, a
 
         remat = cfg.remat == "full" and torch.is_grad_enabled()
         for r in range(self.n_rep):
-            if remat:
-                # the model draws no random numbers: no RNG state to keep,
-                # and keeping the card's costs a host-device round trip
-                x, aux = checkpoint(repeat, x, aux, r, use_reentrant=False,
-                                    preserve_rng_state=False)
-            else:
-                x, aux = repeat(x, aux, r)
+            for j in range(self.period):
+                if remat:
+                    # the model draws no random numbers: no RNG state to
+                    # keep, and keeping the card's costs a host-device round trip
+                    x, a = checkpoint(layer, x, j, r, use_reentrant=False,
+                                      preserve_rng_state=False)
+                else:
+                    x, a = layer(x, j, r)
+                if a is not None:
+                    aux = aux + a
         return shard_batch(x), aux  # pins the head's input gradient (see sharding.py)
 
     def seq_losses(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -485,7 +555,10 @@ class LM:
             loss = ce + cfg.aux_coef * aux
             if weight is not None:
                 loss = (loss * weight).sum()
-            return region.output(loss)
+            loss = region.output(loss)
+        if tr.enabled:
+            self._record_expert_load()
+        return loss
 
     # -- serving: prefill, decode and the slot cache ---------------------------
 
@@ -534,7 +607,7 @@ class LM:
         new dict with ``pos + 1``, the values the JAX function returns."""
         cfg = self.cfg
         params = {k: gather_data_shards(v) for k, v in params.items()}
-        x = reduce_partial(embedding(tokens.long(), params["embed"]))
+        x = self._scale_embed(reduce_partial(embedding(tokens.long(), params["embed"])))
         pos = cache["pos"]
         layers = self._layers(params)
         for r in range(self.n_rep):
@@ -644,6 +717,9 @@ class LM:
                     "mlp.w_down": n(tp, None)}
         elif spec.mlp == "moe":
             blk |= {"mlp_norm.scale": n(None), "moe.router": n(None, None)}
+            if cfg.shared_d_ff:
+                blk |= {"shared.w_gate": n(None, tp), "shared.w_up": n(None, tp),
+                        "shared.w_down": n(tp, None)}
             if moe_on_experts:
                 blk |= {f"moe.{w}": n(tp, None, None) for w in ("w_gate", "w_up", "w_down")}
             else:

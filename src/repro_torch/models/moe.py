@@ -27,6 +27,13 @@ Both take a batch of rows (B, T, d) and route each row on its own, as the
 JAX LM's ``vmap`` of the (T, d) functions over rows does: the capacity
 comes from a row's T.  The expert products are plain ``torch`` matmuls;
 the JAX module has no kernel here either.
+
+A third form has no counterpart in the JAX package: :func:`moe_apply_dropless`
+(granite), for an expert layer that holds a contiguous range of the
+experts, as under expert parallelism.  It routes over all of them as the
+others do, computes every (token, choice) pair whose expert is held, with
+no capacity and nothing dropped, and returns the held experts' part of the
+result; what the other ranks' experts add is theirs to add.
 """
 
 from __future__ import annotations
@@ -37,32 +44,49 @@ import torch.nn.functional as F
 from repro_torch.models.layers import activation, dense_init
 from repro_torch.models.sharding import reduce_partial
 
-__all__ = ["init_moe", "moe_apply", "moe_apply_dense", "moe_capacity"]
+__all__ = ["init_moe", "moe_apply", "moe_apply_dense", "moe_apply_dropless", "moe_capacity"]
 
 Params = dict[str, torch.Tensor]
 
 
 def init_moe(
     gen: torch.Generator, n_rep: int, d: int, n_experts: int, ff: int,
-    dtype: torch.dtype, device: torch.device | str = "cuda",
+    dtype: torch.dtype, device: torch.device | str = "cuda", held: int | None = None,
 ) -> Params:
     """``n_rep`` stacked MoE layers, leaves ``(n_rep, ...)``, with the JAX
     init's distributions: the router f32 at scale 0.02, and the experts at
     ``n_experts ** -0.5`` (JAX's ``dense_init`` takes the leading dim of
-    ``(n_experts, d, ff)`` as the fan-in)."""
+    ``(n_experts, d, ff)`` as the fan-in).  ``held`` experts' weights where
+    the layer holds a share of them (the router scores all ``n_experts``)."""
     dev = torch.device(device)
     std = (1.0 / n_experts) ** 0.5
+    n = held or n_experts
     return {
         "router": dense_init(gen, (n_rep, d, n_experts), torch.float32, dev, scale=0.02),
-        "w_down": dense_init(gen, (n_rep, n_experts, ff, d), dtype, dev, scale=std),
-        "w_gate": dense_init(gen, (n_rep, n_experts, d, ff), dtype, dev, scale=std),
-        "w_up": dense_init(gen, (n_rep, n_experts, d, ff), dtype, dev, scale=std),
+        "w_down": dense_init(gen, (n_rep, n, ff, d), dtype, dev, scale=std),
+        "w_gate": dense_init(gen, (n_rep, n, d, ff), dtype, dev, scale=std),
+        "w_up": dense_init(gen, (n_rep, n, d, ff), dtype, dev, scale=std),
     }
 
 
 def moe_capacity(n_tokens: int, n_experts: int, top_k: int, capacity_factor: float) -> int:
     c = int(n_tokens * top_k * capacity_factor / n_experts)
     return max(8, ((c + 7) // 8) * 8)
+
+
+def _gates(router: torch.Tensor, x: torch.Tensor, top_k: int):
+    """The routing every form shares: x (B, T, d) -> (gates (B, T, k) f32,
+    expert ids (B, T, k), aux (B,)).  An f32 router over all E experts, a
+    softmax over them, the top k with the gates renormalized over the k
+    chosen (equal to a softmax over the k chosen logits, HF Granite's
+    form), and Switch's load-balance loss over the first choice."""
+    E = router.shape[1]
+    probs = torch.softmax(x.float() @ router, dim=-1)  # (B, T, E)
+    gates, ids = probs.topk(top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    me = probs.mean(1)
+    ce = F.one_hot(ids[..., 0], E).float().mean(1)
+    return gates, ids, E * (me * ce).sum(-1)
 
 
 def _route(params: Params, x: torch.Tensor, top_k: int, capacity_factor: float):
@@ -72,14 +96,9 @@ def _route(params: Params, x: torch.Tensor, top_k: int, capacity_factor: float):
     batch row, so a batch sharded over ranks (DTensor) routes shard by
     shard."""
     B, T, _ = x.shape
+    gates, ids, aux = _gates(params["router"], x, top_k)
     E = params["router"].shape[1]
     C = moe_capacity(T, E, top_k, capacity_factor)
-    probs = torch.softmax(x.float() @ params["router"], dim=-1)  # (B, T, E)
-    gates, ids = probs.topk(top_k, dim=-1)
-    gates = gates / gates.sum(-1, keepdim=True)
-    me = probs.mean(1)
-    ce = F.one_hot(ids[..., 0], E).float().mean(1)
-    aux = E * (me * ce).sum(-1)
     flat = ids.reshape(B, T * top_k)  # (t, k) priority order
     onehot = F.one_hot(flat, E)
     pos = (onehot.cumsum(1) - onehot).gather(-1, flat[..., None])[..., 0]
@@ -192,3 +211,102 @@ def moe_apply(
     for j in range(1, top_k):
         y = y + terms[:, :, j]
     return y.to(dd), aux
+
+
+# ---------------------------------------------------------------------------
+# the dropless form over a held share of the experts
+# ---------------------------------------------------------------------------
+
+
+class _PairGather(torch.autograd.Function):
+    """x (N, d) -> each pair's token row, in sorted order: ``x[order //
+    k]`` (N·k, d).  The backward takes each pair's gradient back to (token,
+    choice) order by the inverse permutation, zeroes the pairs that are not
+    held (the grouped products leave those rows unwritten) and sums a
+    token's k in f32: deterministic, where ``index_select``'s own backward
+    adds the k with atomics."""
+
+    @staticmethod
+    def forward(ctx, x, order, inv, held, k):
+        ctx.save_for_backward(inv, held)
+        ctx.k = k
+        return x.index_select(0, order // k)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv, held = ctx.saved_tensors
+        gk = g.index_select(0, inv).view(held.shape[0], ctx.k, -1)
+        gk = torch.where(held[..., None], gk, torch.zeros((), dtype=g.dtype, device=g.device))
+        return gk.sum(1, dtype=torch.float32).to(g.dtype), None, None, None, None
+
+
+def _zero_past(t: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Rows of ``t`` outside ``valid`` set to zero (by selection: the rows a
+    grouped product leaves unwritten may hold anything)."""
+    return torch.where(valid[:, None], t, torch.zeros((), dtype=t.dtype, device=t.device))
+
+
+def _held_grouped(params: Params, xs: torch.Tensor, offs: torch.Tensor,
+                  valid: torch.Tensor, act) -> torch.Tensor:
+    """The held experts' FFN over the sorted pair rows ``xs`` (N·k, d) as
+    three grouped products (``torch._grouped_mm``), expert e over rows
+    ``[offs[e-1], offs[e])``.  A grouped product leaves its rows past the
+    last offset unwritten, so each product's output is zeroed there: the
+    forward and every product of the backward then see zeros in them."""
+    g = _zero_past(torch._grouped_mm(xs, params["w_gate"], offs=offs), valid)
+    u = _zero_past(torch._grouped_mm(xs, params["w_up"], offs=offs), valid)
+    return _zero_past(torch._grouped_mm(act(g) * u, params["w_down"], offs=offs), valid)
+
+
+def _held_loop(params: Params, xs: torch.Tensor, counts: torch.Tensor, act) -> torch.Tensor:
+    """The same by a loop over the held experts, each on its own rows: the
+    counts are read on the host (a synchronize)."""
+    out, at = [], 0
+    for e, c in enumerate(counts.tolist()):
+        r = xs[at:at + c]
+        out.append((act(r @ params["w_gate"][e]) * (r @ params["w_up"][e])) @ params["w_down"][e])
+        at += c
+    out.append(xs.new_zeros((xs.shape[0] - at, xs.shape[1])))
+    return torch.cat(out)
+
+
+def moe_apply_dropless(
+    params: Params, x: torch.Tensor, *, top_k: int, offset: int = 0, act: str = "silu",
+    impl: str = "grouped",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The held experts' part of a MoE layer, nothing dropped: x (B, T, d)
+    -> (y (B, T, d), aux (B,), counts (n,)), where the layer holds experts
+    ``[offset, offset + n)`` of the router's E (``w_gate`` is (n, d, ff)).
+
+    Routing is :func:`_gates`'.  The (token, choice) pairs are sorted by
+    held expert (a stable sort: within an expert in (t, k) order), the
+    pairs on experts held elsewhere last; each held expert's FFN runs on
+    its own rows, ``impl`` "grouped" (three ``torch._grouped_mm`` over
+    every row, offsets on the device: no synchronize) or "loop" (a matmul
+    chain per expert, on counts read on the host).  The expert products
+    are in the activation dtype; each pair's output times its gate, in the
+    activation dtype, and a token's k terms summed in f32.  ``counts`` is
+    each held expert's pairs, on the device."""
+    B, T, d = x.shape
+    N, k, n = B * T, top_k, params["w_gate"].shape[0]
+    dd, dev = x.dtype, x.device
+    gates, ids, aux = _gates(params["router"], x, top_k)
+    local = ids.reshape(N * k) - offset
+    held = (local >= 0) & (local < n)
+    key = torch.where(held, local, torch.full_like(local, n))  # held elsewhere: last
+    order = torch.argsort(key, stable=True)
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(N * k, device=dev))
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, key, torch.ones_like(key))[:n]
+    valid = key.index_select(0, order) < n  # the sorted rows that are held pairs
+    xs = _PairGather.apply(x.reshape(N, d), order, inv, held.view(N, k), k)
+    a = activation(act)
+    if impl == "grouped":
+        ye = _held_grouped(params, xs, counts.cumsum(0).to(torch.int32), valid, a)
+    elif impl == "loop":
+        ye = _held_loop(params, xs, counts, a)
+    else:
+        raise ValueError(f"unknown dropless impl {impl!r}; 'grouped' or 'loop'")
+    terms = ye.index_select(0, inv).view(N, k, d) * gates.reshape(N, k, 1).to(dd)
+    y = terms.sum(1, dtype=torch.float32).to(dd)
+    return y.view(B, T, d), aux, counts

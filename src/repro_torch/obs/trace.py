@@ -31,7 +31,11 @@ traced step already makes and placed on the host clock by
 bracketed by two identity autograd markers (``span.output`` opens it,
 ``span.input`` closes it), so forward, recompute and backward each get
 their own span.  On the CPU, where work runs as it is issued, the region
-reads the host clock instead and the records are the same.
+reads the host clock instead and the records are the same.  A number the
+device computes rides along the same way (:meth:`Tracer.device_value` as a
+region's arg, :meth:`Tracer.device_counter`): copied to pinned host memory
+on the stream, without a synchronize, and read when its step's regions are
+placed.
 
 Zero-overhead-when-off contract: instrumented code holds a tracer
 reference that is either a real :class:`Tracer` (``enabled = True``) or
@@ -111,6 +115,12 @@ class NullTracer:
 
     def device_span(self, name: str, *, device=None, **args) -> _NullSpan:
         return NULL_SPAN
+
+    def device_value(self, t):
+        return None
+
+    def device_counter(self, name: str, value) -> None:
+        pass
 
     def instant(self, name: str, **kw) -> None:
         pass
@@ -214,6 +224,11 @@ class _DeviceSpan:
         self._bwd = None
         tr._device_region(self._name, t0, tr._device_mark(self._device),
                           {**self._args, "pass": "bwd", "parent": parent})
+
+
+def _is_tensor(v) -> bool:
+    """Whether ``v`` is a torch tensor (this module imports no torch)."""
+    return type(v).__module__.startswith("torch") and hasattr(v, "tolist")
 
 
 @functools.cache
@@ -351,6 +366,25 @@ class Tracer:
         with self._lock:
             self._pending.append((name, start, end, args))
 
+    def device_value(self, t):
+        """A device tensor's value as a region's arg: a copy into pinned host
+        memory queued on the current stream (no synchronize; a CPU tensor is
+        copied as it is).  The region's record holds it as a number, or a
+        list, once :meth:`place_regions` has placed it."""
+        import torch
+
+        t = t.detach()
+        if not t.is_cuda:
+            return t.clone()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t, non_blocking=True)
+
+    def device_counter(self, name: str, value) -> None:
+        """A counter sample whose value (a 0-d tensor) the device computes:
+        recorded at the synchronize that ends its step, when
+        :meth:`place_regions` places that step's regions."""
+        self._device_region(name, None, None, {"value": self.device_value(value)})
+
     def sync_device(self, device=None) -> float:
         """Wait for ``device``; returns the clock after the wait.  The device
         regions recorded since the last call are kept with an anchor event,
@@ -390,6 +424,10 @@ class Tracer:
         the pool."""
         idle = []
         for name, a, b, args in pending:
+            args = {k: v.tolist() if _is_tensor(v) else v for k, v in args.items()}
+            if a is None:  # a device counter
+                self.counter(name, args["value"], t=T)
+                continue
             if not isinstance(a, float):
                 idle += (a, b)
                 a, b = (T - e.elapsed_time(anchor) * 1e-3 for e in (a, b))

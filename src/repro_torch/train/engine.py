@@ -76,6 +76,7 @@ from repro_torch.core.aggregator import (
     pack_flat_device,
     protocol_reference,
     slot_weights_device,
+    spread_copies_device,
     support_slot_mask_device,
 )
 from repro_torch.core.codec import Codec
@@ -182,7 +183,7 @@ class StepEngine:
         # device-resident plan cache, keyed by plan object IDENTITY
         self._plan_ref = None
         self._dev_pids: torch.Tensor | None = None  # (m, n_slots) int64
-        self._dev_coeff: torch.Tensor | None = None  # (m, n_slots) f32
+        self._dev_coeff: torch.Tensor | None = None  # (m, n_slots) f64 B[w, pid]*mask
         self._dev_mask: torch.Tensor | None = None  # (m, n_slots) f32
         self._dev_coeff_mask: torch.Tensor | None = None  # slot_coeff*slot_mask
         self._ones_support: torch.Tensor | None = None  # (m, k) f32
@@ -233,14 +234,17 @@ class StepEngine:
 
     def _device_plan(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(slot_pids, slot_coeff, slot_mask) as cached device tensors,
-        uploaded once per plan object."""
+        uploaded once per plan object; slot_coeff is B[w, pid] in f64 (0 on
+        padding), for the fused pass's f64 slot weights."""
         plan = self.codec.plan
         if self._plan_ref is not plan:
             dev = self.device
             self._dev_pids = torch.as_tensor(plan.slot_pids, dtype=torch.long, device=dev)
-            self._dev_coeff = torch.as_tensor(plan.slot_coeff, device=dev)
             self._dev_mask = torch.as_tensor(plan.slot_mask, device=dev)
             self._dev_coeff_mask = torch.as_tensor(plan.slot_coeff * plan.slot_mask, device=dev)
+            B = np.asarray(self.codec.scheme.B, np.float64)
+            self._dev_coeff = torch.as_tensor(
+                B[np.arange(plan.m)[:, None], plan.slot_pids] * plan.slot_mask, device=dev)
             self._plan_ref = plan
         return self._dev_pids, self._dev_coeff, self._dev_mask
 
@@ -285,13 +289,17 @@ class StepEngine:
                 for k, v in self._flat_batch(partition_batch, a, support).items()}
 
     def _device_batch(self, pbatch: dict, a, support) -> dict[str, torch.Tensor]:
-        """On-device pack + slot weights: the flat coded batch."""
+        """On-device pack + slot weights: the flat coded batch, the weights
+        made in f64 from the decode vector and B and each partition's total
+        spread evenly over its weighted copies (:func:`spread_copies_device`:
+        the same gradient, without an ill-conditioned decode's cancellation
+        in a bf16 backward)."""
         pids, coeff, mask = self._device_plan()
-        a_dev = torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)
+        a_dev = torch.as_tensor(np.asarray(a), dtype=torch.float64, device=self.device)
         w = slot_weights_device(
             a_dev, self._support_dev(support), coeff, mask, pids, self.codec.k
         )
-        return pack_flat_device(pbatch, pids, w)
+        return pack_flat_device(pbatch, pids, spread_copies_device(w, pids, mask, self.codec.k))
 
     # -- step functions -----------------------------------------------------
 

@@ -1107,3 +1107,148 @@ def test_cuda_two_ranks_on_the_card_match_the_emulated_spmd(cuda_device, tmp_pat
 
 if __name__ == "__main__":
     _group_rank(sys.argv[1])
+
+
+# -- granite-4.0-h-small at one layer's published widths (B 20, S 1024, bf16) ----
+
+
+def _cuda_ms(fn, n=5):
+    """Milliseconds a call of ``fn``: CUDA events around ``n`` calls, after
+    one call to warm it."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def _granite_moe(dev, seed=0):
+    """One granite MoE layer's held share (9 of 72 experts, top 10, width
+    768) at d 4096, the benchmark's distributions, and its input (20, 1024,
+    4096) in bf16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, E, n, ff = 4096, 72, 9, 768
+    w = lambda *s, std: (torch.randn(s, generator=g, device=dev) * std)  # noqa: E731
+    params = {"router": w(d, E, std=d**-0.5),
+              "w_gate": w(n, d, ff, std=d**-0.5).bfloat16(),
+              "w_up": w(n, d, ff, std=d**-0.5).bfloat16(),
+              "w_down": w(n, ff, d, std=ff**-0.5 / 20**0.5).bfloat16()}
+    return params, w(20, 1024, d, std=1.0).bfloat16()
+
+
+def _moe_grads(params, x, impl, dy):
+    from repro_torch.models.moe import moe_apply_dropless
+
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    xx = x.detach().clone().requires_grad_()
+    y, _, counts = moe_apply_dropless(leaves, xx, top_k=10, impl=impl)
+    y.backward(dy)
+    return [y.detach(), xx.grad] + [leaves[k].grad for k in sorted(leaves)], counts
+
+
+@pytest.mark.gpu
+def test_cuda_granite_moe_grouped_route_matches_the_loop(cuda_device):
+    """The dropless route's grouped products (the main path) against the
+    per-expert loop, on the same routed pairs: y and every gradient within
+    5e-3 (Frobenius) of each other, the two differing only in the order of
+    each product's bf16 sums; the held pairs counted as the routing's own
+    top 10 give them.  Both timed, forward and backward (PERF.md)."""
+    params, x = _granite_moe(cuda_device)
+    dy = torch.randn_like(x)
+    grouped, counts = _moe_grads(params, x, "grouped", dy)
+    loop, counts_loop = _moe_grads(params, x, "loop", dy)
+    ids = (x.float() @ params["router"]).topk(10, dim=-1).indices
+    assert torch.equal(counts, torch.stack([(ids == e).sum() for e in range(9)]))
+    assert torch.equal(counts, counts_loop)
+    names = ["y", "x", "router", "w_down", "w_gate", "w_up"]
+    for name, a, b in zip(names, grouped, loop):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, b) <= 5e-3, f"{name}: {_rel(a, b):.3e}"
+    times = {impl: (_cuda_ms(lambda: _moe_grads(params, x, impl, dy)[0][0].sum()),) for impl
+             in ("grouped", "loop")}
+    print(f"\ngranite moe fwd+bwd ms: {times}, held pairs {int(counts.sum())}")
+
+
+@pytest.mark.gpu
+def test_cuda_granite_moe_grouped_route_takes_no_synchronize(cuda_device):
+    """The grouped route's forward and backward under CUDA's sync debug mode
+    "error": no call in them waits for the card."""
+    from repro_torch.models.moe import moe_apply_dropless
+
+    params, x = _granite_moe(cuda_device)
+    leaves = {k: v.requires_grad_() for k, v in params.items()}
+    x.requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, _, _ = moe_apply_dropless(leaves, x, top_k=10, impl="grouped")
+        y.backward(torch.ones_like(y))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad.float()).all()
+
+
+@pytest.mark.gpu
+def test_cuda_granite_attention_through_the_training_kernels(cuda_device):
+    """Granite's attention layer (hd 128, 32 / 8 heads, scores scaled by
+    1/128, no positional embedding) through the training flash kernels
+    against the model's own chain, forward and backward: the output and
+    every gradient within 5e-3 (Frobenius), as the kernels' own tests hold
+    them; each timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import attention_forward
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    d, H, K, hd = 4096, 32, 8, 128
+    w = lambda *s: (torch.randn(s, generator=g, device=cuda_device) * s[0] ** -0.5).bfloat16()  # noqa: E731
+    params = {"wq": w(d, H * hd), "wk": w(d, K * hd), "wv": w(d, K * hd), "wo": w(H * hd, d)}
+    x = torch.randn(20, 1024, d, generator=g, device=cuda_device).bfloat16()
+    dy = torch.randn_like(x)
+    pos = torch.arange(1024, device=cuda_device)
+
+    def run(impl):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        xx = x.detach().clone().requires_grad_()
+        out, _ = attention_forward(leaves, xx, pos, n_heads=H, n_kv=K, head_dim=hd,
+                                   rotary_dim=0, rope_theta=10000.0, impl=impl, scale=1 / 128)
+        out.backward(dy)
+        return [out.detach(), xx.grad] + [leaves[k].grad for k in sorted(leaves)]
+
+    before = fa.flash_attention_train_fwd.launches
+    kern = run(None)
+    assert fa.flash_attention_train_fwd.launches == before + 1
+    plain = run("torch")
+    for name, a, b in zip(["out", "x", "wk", "wo", "wq", "wv"], kern, plain):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, b) <= 5e-3, f"{name}: {_rel(a, b):.3e}"
+    print(f"\ngranite attention fwd+bwd ms: kernels {_cuda_ms(lambda: run(None)):.3f}, "
+          f"plain chain {_cuda_ms(lambda: run('torch'), n=2):.3f}")
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_granite_128_heads_matches_plain(cuda_device):
+    """The scan at granite's layer (128 heads of 64, 1 group, state 128,
+    chunk 256, bf16 B/C, dt and A as the model draws them) and the
+    benchmark's pass (B 20, S 1024) against the plain chunked version:
+    y and h within 1e-3 x the plain version's largest magnitude, the bound
+    the kernel's bf16 hi + lo scheme keeps at mamba2's layer
+    (tests/test_torch_ssm.py, ``-k precision``); each timed.  (Elementwise,
+    atol 1e-4 / rtol 1e-3, 7 of the 168 M outputs are over, by 4.2e-4 at
+    most.)"""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+
+    x, dA, Bm, Cm = _ssd_inputs(20, 1024, 128, 1, 64, 128, torch.bfloat16, cuda_device, 7,
+                                model_dA=True)
+    y, h = ssd_scan(x, dA, Bm, Cm, 256)
+    py, ph = ssd_scan_torch(x, dA, Bm, Cm, 256)
+    for got, want in ((y, py), (h, ph)):
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    del py, ph
+    print(f"\ngranite ssd_scan ms: kernel {_cuda_ms(lambda: ssd_scan(x, dA, Bm, Cm, 256)):.4f}, "
+          f"plain {_cuda_ms(lambda: ssd_scan_torch(x, dA, Bm, Cm, 256), n=2):.3f}")
