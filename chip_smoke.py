@@ -36,7 +36,9 @@ never imports ``jax`` or the JAX package):
      at the families' prefill shapes (a window's bound counting only the
      pairs inside it; the library call takes it as a boolean mask); the
      SSD scan at the training micro-batch, the generate prefill and the
-     engine's longest prompt;
+     engine's longest prompt; the SSD backward kernels at a pass of the
+     benchmark's mamba2 and granite cells, checked against the plain
+     backward and timed beside it;
   5. the main path: ``repro_torch.launch.train`` on smollm-360m at full
      width, spmd backend, heter_aware, s=1, m=4, one faulted worker per
      step, 4 steps, checking losses, the decode metrics and that
@@ -243,6 +245,10 @@ TRACE = dict(n=16, prompt=(128, 2048), new=(32, 128), gap_s=0.3, n_slots=8, cach
 # line's ms), generate's prefill and the engine's longest prompt
 SSD_TIMED = ((SSD_FULL["B"], SSD_FULL["S"]), (GEN["B"], GEN["S"]), (1, TRACE["prompt"][1]))
 SSD_BATCH = 20  # calls a timed reading of ssd_scan spans
+# the SSD backward's timed shapes (B, S, H): one pass of the benchmark's
+# mamba2-370m and granite-4.0-h-small cells (P 64, G 1, N 128)
+SSD_BWD_TIMED = ((40, 2048, 32), (20, 1024, 128))
+SSD_BWD_BATCH = 5  # calls a timed reading of ssd_scan_bwd
 # flash_attention against its plain version beyond the JAX test's shapes:
 # (atol, rtol).  In bf16 one spacing of the value (2^-7 of it at most) over
 # a floor for values near zero; in f32 a few f32 spacings of summation order.
@@ -670,27 +676,29 @@ def launch_counters() -> dict:
     from repro_torch.kernels.coded_reduce import coded_reduce
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_train_bwd,
                                                      flash_attention_train_fwd)
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
 
     return {"coded_reduce": coded_reduce, "coded_encode_int8": coded_encode_int8,
             "coded_decode_int8": coded_decode_int8, "ssd_scan": ssd_scan,
             "flash_attention": flash_attention,
             "flash_attention_train_fwd": flash_attention_train_fwd,
-            "flash_attention_train_bwd": flash_attention_train_bwd}
+            "flash_attention_train_bwd": flash_attention_train_bwd,
+            "ssd_scan_bwd": ssd_scan_bwd}
 
 
-# the training kernels' counters where no layer runs them (f32, hd 80, mamba)
-NO_TRAIN = {"flash_attention_train_fwd": 0, "flash_attention_train_bwd": 0}
+# the training kernels' counters where no layer runs them (f32, hd 80; the
+# SSD's backward where no bf16 SSD layer is differentiated)
+NO_TRAIN = {"flash_attention_train_fwd": 0, "flash_attention_train_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def smollm_train(n_grads: int, n_losses: int) -> dict:
     """The training kernels' launches of full-width smollm-360m (bf16, hd
     64, full remat): each gradient runs the forward twice a layer (the
     forward and remat's recompute) and the backward once; each loss-only
-    forward (no grad) the forward once."""
+    forward (no grad) the forward once; it has no SSD layer."""
     return {"flash_attention_train_fwd": (2 * n_grads + n_losses) * SMOLLM_LAYERS,
-            "flash_attention_train_bwd": n_grads * SMOLLM_LAYERS}
+            "flash_attention_train_bwd": n_grads * SMOLLM_LAYERS, "ssd_scan_bwd": 0}
 
 
 def _passes(records: list[dict]) -> tuple[int, int]:
@@ -1250,6 +1258,63 @@ def time_ssd(torch) -> dict:
         del x, dA, Bm, Cm
         torch.cuda.empty_cache()
     return dict(shapes[0], shape=f, shapes=shapes)
+
+
+def time_ssd_bwd(torch) -> dict:
+    """Phase 4, the SSD backward kernels at one pass of each SSD cell of the
+    benchmark (SSD_BWD_TIMED; bf16 B/C, the model's dA, no gradient of h, as
+    training gives them): each gradient against the plain backward (f32
+    autograd of the plain version at chunk 256) within 1e-4 x its largest
+    magnitude for dx and ddA (f32) and one bf16 spacing of it (2^-7) for dB
+    and dC, both rounded once to bf16; then the kernels' time a call over
+    SSD_BWD_BATCH calls, the device time of each of the five launches, and
+    the plain backward's time one call at a time.  The bound: x, dy and dx,
+    dA and ddA (f32) and B, C, dB and dC (bf16), each read or written once,
+    at the HBM rate (the states the forward kept are the kernels' choice,
+    not counted)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    f = SSD_FULL
+    P, G, N, chunk = f["P"], f["G"], f["N"], f["chunk"]
+    shapes = []
+    for B, S_, H in SSD_BWD_TIMED:
+        x, dA, Bm, Cm = ssd_inputs(torch, B, S_, H, P, G, N, torch.bfloat16, 13, model_dA=True)
+        gy = torch.randn(B, S_, H, P, generator=torch.Generator(device="cuda").manual_seed(14),
+                         device="cuda")
+        _, _, ws = ssd.ssd_scan_with_states(x, dA, Bm, Cm, chunk)
+        got = ssd.ssd_scan_bwd(x, dA, Bm, Cm, chunk, gy, None, ws)
+        want = ssd.ssd_scan_bwd_torch(x, dA, Bm, Cm, chunk, gy, None)
+        errs, ok = {}, True
+        for name, k, p in zip(("dx", "ddA", "dB", "dC"), got, want):
+            top = float(p.float().abs().max())
+            err = float((k.float() - p.float()).abs().max())
+            limit = (1e-4 if p.dtype == torch.float32 else 2.0**-7) * top
+            errs[name] = err / top
+            ok = ok and bool(torch.isfinite(k).all()) and err <= limit
+        del got, want
+        torch.cuda.empty_cache()
+        run = lambda: ssd.ssd_scan_bwd(x, dA, Bm, Cm, chunk, gy, None, ws)  # noqa: E731
+        ms = time_cuda(run, reps=5, warmup=1, batch=SSD_BWD_BATCH)
+        passes = device_split(torch, run, SSD_BWD_BATCH)
+        plain_ms = time_cuda(lambda: ssd.ssd_scan_bwd_torch(x, dA, Bm, Cm, chunk, gy, None),
+                             reps=3, warmup=1)
+        nbytes = (3 * x.numel() + 2 * dA.numel()) * 4 + 4 * Bm.numel() * 2
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shapes.append(dict(B=B, S=S_, H=H, ms=ms, passes_ms=passes, plain_ms=plain_ms,
+                           bound_ms=bound_ms, nbytes=nbytes, rel_err=errs))
+        log(f"time ssd_scan_bwd B={B} S={S_} H={H} P={P} G={G} N={N} bf16 B/C: kernels "
+            f"{ms:.4f} ms a call ({SSD_BWD_BATCH} calls a reading; bound {bound_ms:.4f} ms by bytes "
+            f"over {nbytes / 1e6:.2f} MB, {bound_ms / ms:.1%} of it), plain backward "
+            f"{plain_ms:.3f} ms ({plain_ms / ms:.1f}x); against the plain backward, error over "
+            f"its max " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" {'ok' if ok else 'FAIL'}; device time a call by kernel (profiler): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items()))
+        if not ok:
+            raise AssertionError(f"ssd_scan_bwd at B={B} S={S_} H={H} disagrees with the plain "
+                                 "backward")
+        del x, dA, Bm, Cm, gy, ws
+        torch.cuda.empty_cache()
+    return dict(shapes=shapes)
 
 
 def mamba_kernel_check(torch) -> dict:
@@ -3039,6 +3104,7 @@ def main() -> int:
     wenc = time_encode(torch, n_slots, D_FULL)
     wdec = time_decode(torch, M, D_FULL)
     tssd = time_ssd(torch)
+    tssd_bwd = time_ssd_bwd(torch)
     tflash = time_flash(torch)
     auto = autotune.wire_kernel_default("cuda")
     probe = next(v for k, v in autotune.PROBE_US.items() if k[0] == "wire_kernel")
@@ -3061,7 +3127,8 @@ def main() -> int:
     passes = 2 * M * n_slots + 1
     mamba_launches = lambda n: {  # noqa: E731
         "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
-        "ssd_scan": n * passes * MAMBA_LAYERS, "flash_attention": 0, **NO_TRAIN}
+        "ssd_scan": n * passes * MAMBA_LAYERS, "flash_attention": 0, **NO_TRAIN,
+        "ssd_scan_bwd": n * M * n_slots * MAMBA_LAYERS}
     run = main_path(torch, "spmd", SLICE_ARGS, smollm_launches)
     wire_run = main_path(torch, "spmd --compress", WIRE_ARGS, wire_launches,
                          on_step=check_err_after_step(torch))
@@ -3201,6 +3268,9 @@ def main() -> int:
         "launches_jamba": {"generate": jamba["launches"]["ssd_scan"],
                            "fused_step": jamba["fused_step"]["launches"]["ssd_scan"]},
         "checks": ssd_check,
+        "backward": dict(tssd_bwd, launches=mamba_run["launches"]["ssd_scan_bwd"],
+                         route="wgmma, five launches a call (chunk, state, dx, dB/dC, "
+                               "reduce passes), bf16 B/C; f32 B/C the plain backward"),
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -22,8 +22,9 @@ from repro_torch.kernels.coded_reduce import coded_reduce_torch
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention_torch, flash_attention_train_torch
 from repro_torch.kernels.flash_attention import flash_attention_train as _flash_train_kernel
-from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan_torch
-from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan_kernel
+from repro_torch.kernels.ssd_scan import (
+    SSDScanFn, ssd_scan_bwd, ssd_scan_torch, ssd_scan_with_states,
+)
 
 IMPLS = ("cuda", "torch", "best")
 
@@ -102,8 +103,19 @@ def ssd_scan(
     chunk: int = 128, impl: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The SSD chunked scan: ``(y (B,S,H,P) f32, h (B,H,P,N) f32)``.
-    Differentiable either way: the kernel through :class:`SSDScanFn`
-    (backward by the plain version), the plain version by autograd."""
+    Differentiable either way: the kernel through :class:`SSDScanFn`, the
+    plain version by autograd.  :func:`ssd_backward_impl` says which
+    backward a call gets."""
     if _resolve(impl, x) == "torch":
         return ssd_scan_torch(x, dA, Bm, Cm, chunk)
-    return SSDScanFn.apply(x, dA, Bm, Cm, chunk, _ssd_scan_kernel)
+    bwd = ssd_scan_bwd if ssd_backward_impl(x, Bm, impl) == "kernel" else None  # None: plain
+    return SSDScanFn.apply(x, dA, Bm, Cm, chunk, ssd_scan_with_states, bwd)
+
+
+def ssd_backward_impl(x: torch.Tensor, Bm: torch.Tensor, impl: str | None = None) -> str:
+    """What differentiates :func:`ssd_scan` for these tensors and ``impl``:
+    "kernel", the backward kernels, for bf16 B and C on the card (the
+    tensor-core forward's), or "plain", autograd of the plain version (the
+    CPU, f32 B and C)."""
+    cuda = _resolve(impl, x) == "cuda"
+    return "kernel" if cuda and Bm.dtype == torch.bfloat16 else "plain"

@@ -24,8 +24,16 @@ Layouts are the JAX package's: x (B,S,H,P), dA (B,S,H), Bm and Cm
   kernel, one launch a call.
 - :class:`SSDScanFn` makes the kernel differentiable.  The Pallas kernel
   has no VJP and the JAX trainer differentiates the pure-jnp
-  ``ssd_chunked``, so the backward recomputes the plain version from the
-  saved inputs and differentiates that.
+  ``ssd_chunked``; the port has a backward of its own for the bf16 kernel:
+  :func:`ssd_scan_bwd`, the hand-written sm_90a kernels ``ssd_bwd_*`` of
+  ``csrc/ssd_scan.cu`` (five launches a call, counted in
+  ``ssd_scan_bwd.launches``), which read the states entering each chunk
+  that the forward kept (:func:`ssd_scan_with_states`).
+  ``kernels.ops.ssd_scan`` routes by device and B and C's dtype alone: bf16
+  B and C on the card take the kernel backward; f32 ones (the CUDA-core
+  forward, the f32 cross-checks) take :func:`ssd_scan_bwd_torch`, the plain
+  version recomputed from the saved inputs and differentiated by autograd,
+  and the CPU runs the plain version under autograd.
 """
 
 from __future__ import annotations
@@ -37,7 +45,10 @@ import torch
 
 from repro_torch.kernels.build import library
 
-__all__ = ["SSDScanFn", "ssd_scan", "ssd_scan_torch"]
+__all__ = [
+    "SSDScanFn", "ssd_scan", "ssd_scan_bwd", "ssd_scan_bwd_torch",
+    "ssd_scan_torch", "ssd_scan_with_states",
+]
 
 # dtype codes of the C interface for Bm / Cm (csrc/ssd_scan.cu)
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,14 +80,15 @@ def ssd_scan_torch(
 
     x (B,S,H,P) already multiplied by dt; dA (B,S,H); Bm, Cm (B,S,G,N);
     optional initial state h0 (B,H,P,N).  Returns (y (B,S,H,P) f32,
-    final state (B,H,P,N) f32)."""
+    final state (B,H,P,N) f32); f64 throughout where x is f64 (the tests'
+    reference for the gradients)."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if S % chunk:
         raise ValueError(f"seq {S} not divisible by chunk {chunk}")
     rep = H // G
     nc = S // chunk
-    f32 = torch.float32
+    f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
 
     xc = x.reshape(B, nc, chunk, H, P).to(f32)
     ac = dA.reshape(B, nc, chunk, H).permute(0, 3, 1, 2).to(f32)  # (B,H,nc,L)
@@ -122,6 +134,11 @@ def _lib() -> ctypes.CDLL:
         lib.ssd_scan_launch.restype = ctypes.c_int
         lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 7
         lib.ssd_scan_workspace_bytes.restype = ctypes.c_longlong
+        lib.ssd_scan_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.ssd_scan_bwd_launch.restype = ctypes.c_int
+        lib.ssd_scan_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 6
+        lib.ssd_scan_bwd_workspace_bytes.restype = ctypes.c_longlong
         _bound = lib
     return _bound
 
@@ -143,6 +160,12 @@ def _check(x, dA, Bm, Cm, chunk) -> tuple[int, int, int, int, int, int]:
     return B, S, H, P, G, N
 
 
+def _one_device(*ts: torch.Tensor) -> None:
+    devices = {t.device for t in ts}
+    if len(devices) != 1:
+        raise ValueError(f"x, dA, Bm and Cm must be on one device, got {devices}")
+
+
 def ssd_scan(
     x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -159,12 +182,26 @@ def ssd_scan(
     in a workspace allocated here), f32 the CUDA-core kernel (one launch).
     ``ssd_scan.launches`` counts calls that launched.  No autograd: see
     :class:`SSDScanFn`."""
-    B, S, H, P, G, N = _check(x, dA, Bm, Cm, chunk)
-    devices = {t.device for t in (x, dA, Bm, Cm)}
-    if len(devices) != 1:
-        raise ValueError(f"x, dA, Bm and Cm must be on one device, got {devices}")
+    _check(x, dA, Bm, Cm, chunk)
+    _one_device(x, dA, Bm, Cm)
     if x.device.type == "cpu":
         return ssd_scan_torch(x, dA, Bm, Cm, chunk)
+    y, h, _ = ssd_scan_with_states(x, dA, Bm, Cm, chunk)
+    return y, h
+
+
+ssd_scan.launches = 0  # calls that launched a kernel; the plain CPU version never counts
+
+
+def ssd_scan_with_states(
+    x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 128
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan` on a CUDA tensor, and its workspace as the launch
+    left it: for bf16 B/C the state entering each 128-row chunk (B, nc, H,
+    P, N), C B^T and the chunk decays, all f32, which :func:`ssd_scan_bwd`
+    reads (f32 B/C: an empty tensor).  Counted in ``ssd_scan.launches``."""
+    B, S, H, P, G, N = _check(x, dA, Bm, Cm, chunk)
+    _one_device(x, dA, Bm, Cm)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda tensors, not {x.device}")
     if x.dtype != torch.float32 or dA.dtype != torch.float32:
@@ -190,38 +227,109 @@ def ssd_scan(
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError_t {err}")
     ssd_scan.launches += 1
-    return y, h
+    return y, h, ws
 
 
-ssd_scan.launches = 0  # calls that launched a kernel; the plain CPU version never counts
+def ssd_scan_bwd(
+    x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+    gy: torch.Tensor | None, gh: torch.Tensor | None, ws: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of a bf16-B/C :func:`ssd_scan_with_states` call from the
+    gradients of y (B,S,H,P) and h (B,H,P,N) (None: zero; gh None is
+    training's case) and the workspace that call returned: (dx f32, ddA
+    f32, dB bf16, dC bf16), dB and dC each rounded once from an f32 sum.
+    The kernels of ``csrc/ssd_scan.cu``'s backward (header there: its design
+    and what bounds it), five launches in a workspace allocated here, on
+    the current stream; deterministic (no atomics).  Raises on what they do
+    not take; ``ssd_scan_bwd.launches`` counts calls that launched."""
+    B, S, H, P, G, N = _check(x, dA, Bm, Cm, chunk)
+    if x.device.type != "cuda" or any(t.device != x.device for t in (dA, Bm, Cm, ws)):
+        raise ValueError("the SSD backward kernel takes CUDA tensors on one device")
+    if x.dtype != torch.float32 or dA.dtype != torch.float32:
+        raise TypeError(f"x and dA must be float32, got {x.dtype} and {dA.dtype}")
+    if Bm.dtype != torch.bfloat16 or Cm.dtype != torch.bfloat16:
+        raise TypeError(f"the backward kernel takes bf16 Bm and Cm, got {Bm.dtype}, {Cm.dtype}")
+    if P % 8:
+        raise ValueError(f"the kernel tiles P by 8; P={P} is not a multiple of 8")
+    lib = _lib()
+    if ws.dtype != torch.uint8 or ws.numel() != lib.ssd_scan_workspace_bytes(B, S, H, G, P, N, 1):
+        raise ValueError("ws must be the workspace of the bf16 forward call at these shapes")
+    if gy is None:
+        gy = torch.zeros((B, S, H, P), dtype=torch.float32, device=x.device)
+    for name, t, shape in (("gy", gy, (B, S, H, P)), ("gh", gh, (B, H, P, N))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32
+                              or t.device != x.device):
+            raise ValueError(f"{name} must be float32 {shape} on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    gy = gy.contiguous()
+    gh = None if gh is None else gh.contiguous()
+    if not all(t.is_contiguous() for t in (x, dA, Bm, Cm)):
+        raise ValueError("x, dA, Bm and Cm must be contiguous")
+    dx = torch.empty_like(x)
+    ddA = torch.empty_like(dA)
+    dB = torch.empty_like(Bm)
+    dC = torch.empty_like(Cm)
+    work = torch.empty(lib.ssd_scan_bwd_workspace_bytes(B, S, H, G, P, N), dtype=torch.uint8,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), gy.data_ptr(),
+            None if gh is None else gh.data_ptr(), ws.data_ptr(), dx.data_ptr(), ddA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), work.data_ptr(), B, S, H, G, P, N, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: cudaError_t {err}")
+    ssd_scan_bwd.launches += 1
+    return dx, ddA, dB, dC
+
+
+ssd_scan_bwd.launches = 0  # calls that launched the backward kernels
+
+
+def ssd_scan_bwd_torch(
+    x: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+    gy: torch.Tensor | None, gh: torch.Tensor | None, *saved: torch.Tensor,
+) -> tuple[torch.Tensor | None, ...]:
+    """The plain backward: :func:`ssd_scan_torch` recomputed on detached
+    copies of the inputs under grad mode, and ``torch.autograd.grad`` of it
+    for x, dA, Bm and Cm, each in its input's dtype.  ``saved`` (what a
+    forward kept besides its inputs) is not read."""
+    ins = [t.detach().requires_grad_(True) for t in (x, dA, Bm, Cm)]
+    with torch.enable_grad():
+        y, h = ssd_scan_torch(*ins, chunk)
+    pairs = [(out, g) for out, g in ((y, gy), (h, gh)) if g is not None]
+    outs, grads = zip(*pairs)
+    return torch.autograd.grad(outs, ins, grads, allow_unused=True)
 
 
 class SSDScanFn(torch.autograd.Function):
-    """``(y, h) = forward_fn(x, dA, Bm, Cm, chunk)``, differentiated through
-    the plain version.
+    """``(y, h) = forward_fn(x, dA, Bm, Cm, chunk)[:2]``, differentiated by
+    ``backward_fn``.
 
-    The forward runs ``forward_fn`` (the kernel wrapper :func:`ssd_scan` on
-    the card) and saves only its four inputs.  The backward recomputes
-    :func:`ssd_scan_torch` on detached copies under grad mode and returns
-    ``torch.autograd.grad`` of it for x, dA, Bm and Cm, each in its input's
-    dtype.  A gradient of h that no one asked for (training uses y only)
-    arrives as None and is left out."""
+    ``forward_fn`` returns (y, h) and, after them, any tensors its backward
+    reads (:func:`ssd_scan_with_states`: the workspace).  The forward saves
+    the four inputs and those.  ``backward_fn(x, dA, Bm, Cm, chunk, gy, gh,
+    *saved)`` returns the gradients of x, dA, Bm and Cm, each in its input's
+    dtype; the default, :func:`ssd_scan_bwd_torch`, differentiates the
+    plain version.  A gradient of h that no one asked for (training uses y
+    only) arrives as None.  Under no_grad (serving's prefill) nothing is
+    kept past the call."""
 
     @staticmethod
-    def forward(ctx, x, dA, Bm, Cm, chunk: int, forward_fn: Callable):
+    def forward(ctx, x, dA, Bm, Cm, chunk: int, forward_fn: Callable,
+                backward_fn: Callable | None = None):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dA, Bm, Cm)
+        y, h, *saved = forward_fn(x, dA, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dA, Bm, Cm, *saved)
         ctx.chunk = chunk
-        return forward_fn(x, dA, Bm, Cm, chunk)
+        ctx.backward_fn = backward_fn or ssd_scan_bwd_torch
+        return y, h
 
     @staticmethod
     def backward(ctx, gy, gh):
-        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            y, h = ssd_scan_torch(*ins, ctx.chunk)
-        pairs = [(out, g) for out, g in ((y, gy), (h, gh)) if g is not None]
-        if not pairs:
-            return None, None, None, None, None, None
-        outs, grads = zip(*pairs)
-        gx, gdA, gB, gC = torch.autograd.grad(outs, ins, grads, allow_unused=True)
-        return gx, gdA, gB, gC, None, None
+        if gy is None and gh is None:
+            return None, None, None, None, None, None, None
+        x, dA, Bm, Cm, *saved = ctx.saved_tensors
+        gx, gdA, gB, gC = ctx.backward_fn(x, dA, Bm, Cm, ctx.chunk, gy, gh, *saved)
+        return gx, gdA, gB, gC, None, None, None

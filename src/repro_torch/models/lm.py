@@ -364,7 +364,8 @@ class LM:
         """The mixer's norm, attention or mamba2 block and output projection:
         (out, the layer's cache or None).  Training attention sets which
         implementation ran on ``region``, the layer's ``device.mixer``
-        span."""
+        span, as ``impl``; the SSD which backward its scan gets, as
+        ``bwd_impl``."""
         cfg = self.cfg
         h = rms_norm(x, bp["mixer_norm.scale"], cfg.norm_eps)
         if spec.mixer == "attn":
@@ -388,7 +389,7 @@ class LM:
             else:
                 out, new_cache = mamba_forward(
                     _sub(bp, "mamba."), h, chunk=cfg.ssm_chunk, impl=self.ssd_impl,
-                    return_cache=(mode == "prefill"), **kw,
+                    return_cache=(mode == "prefill"), region=region, **kw,
                 )
         return out, new_cache
 

@@ -35,6 +35,7 @@ from repro_torch.kernels.ssd_scan import _segsum
 from repro_torch.kernels.ssd_scan import ssd_scan_torch as ssd_chunked
 from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.models.sharding import on_local_rows, reduce_partial, shard_batch
+from repro_torch.obs.trace import NULL_SPAN
 
 __all__ = ["init_mamba", "mamba_decode", "mamba_forward", "ssd_chunked", "_segsum", "_causal_conv"]
 
@@ -114,11 +115,13 @@ def mamba_forward(
     chunk: int = 64,
     impl: str | None = None,
     return_cache: bool = False,
+    region=NULL_SPAN,
 ) -> tuple[torch.Tensor, Params | None]:
     """Train / prefill.  x: (B, S, d_model) -> ``(out (B, S, d_model),
     cache)``, the cache ``{"h", "conv"}`` when ``return_cache``, else None.
     ``impl`` picks the SSD scan (``kernels.ops``): None by the tensors'
-    device."""
+    device.  The scan's backward, "kernel" or "plain", is set on ``region``
+    (the layer's ``device.mixer`` span) as ``bwd_impl``."""
     B, S, _ = x.shape
     P = d_inner // n_heads
     GN = n_groups * d_state
@@ -140,6 +143,7 @@ def mamba_forward(
     pad = (-S) % chunk  # zero-pad to a chunk multiple: x=0 adds nothing to the
     if pad:  # state and dA=0 gives decay exp(0)=1, so padding is exact
         xdt, dA, Bm, Cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (xdt, dA, Bm, Cm))
+    region.set(bwd_impl=ops.ssd_backward_impl(xdt, Bm, impl))
     y, h = on_local_rows(partial(ops.ssd_scan, chunk=chunk, impl=impl), xdt.contiguous(),
                          dA.contiguous(), Bm.contiguous(), Cm.contiguous(), n_out=2)
     y = y[:, :S]

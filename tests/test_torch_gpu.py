@@ -454,21 +454,193 @@ def test_cuda_ssd_scan_masked_triangle_is_nan_free(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_ssd_scan_fn_grads_match_plain(cuda_device):
-    """Through ops.ssd_scan on the card (the kernel forward, the plain
-    version's backward) the gradients equal plain autograd's: the backward
-    differentiates the same function of the same saved inputs."""
+    """Through ops.ssd_scan on the card: with f32 B/C (the CUDA-core forward,
+    the plain version's backward) the gradients equal plain autograd's, bit
+    for bit (the backward differentiates the same function of the same
+    saved inputs); with bf16 B/C the backward kernels run (one counted
+    call) and each gradient holds to f64 autograd as
+    :func:`_hold_ssd_bwd` states."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
 
-    ins = _ssd_inputs(2, 128, 4, 2, 16, 32, torch.bfloat16, cuda_device, 3)
-    gy = torch.randn(2, 128, 4, 16, device=cuda_device)
-    grads = []
-    for impl in ("cuda", "torch"):
-        leaves = [t.clone().requires_grad_(True) for t in ins]
-        y, _ = ops.ssd_scan(*leaves, chunk=64, impl=impl)
-        grads.append(torch.autograd.grad((y * gy).sum(), leaves))
-    for a, b, t in zip(*grads, ins):
-        assert a.dtype == t.dtype
-        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    for bc in (torch.float32, torch.bfloat16):
+        ins = _ssd_inputs(2, 128, 4, 2, 16, 32, bc, cuda_device, 3)
+        gy = torch.randn(2, 128, 4, 16, device=cuda_device)
+        grads = []
+        before = ssd_scan_bwd.launches
+        for impl in ("cuda", "torch"):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            y, _ = ops.ssd_scan(*leaves, chunk=64, impl=impl)
+            grads.append(torch.autograd.grad((y * gy).sum(), leaves))
+        kernel = bc == torch.bfloat16
+        assert ssd_scan_bwd.launches == before + kernel
+        assert ops.ssd_backward_impl(ins[0], ins[2]) == ("kernel" if kernel else "plain")
+        for a, b, t in zip(*grads, ins):
+            assert a.dtype == t.dtype
+            if not kernel:
+                torch.testing.assert_close(a, b, atol=0, rtol=0)
+        if kernel:
+            _hold_ssd_bwd(grads[0], *ins, gy, None, 64)
+
+
+def _ssd_grads(x, dA, Bm, Cm, gy, gh, dtype, chunk):
+    """Plain autograd of ``ssd_scan_torch`` in ``dtype``: f64 with B and C
+    widened, or f32 with B and C as given (their gradients in their dtype,
+    as the model's)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_torch
+
+    wide = dtype == torch.float64
+    ins = [t.detach().to(dtype if wide or i < 2 else t.dtype).requires_grad_(True)
+           for i, t in enumerate((x, dA, Bm, Cm))]
+    y, h = ssd_scan_torch(*ins, chunk)
+    outs, gs = [y], [gy.to(y.dtype)]
+    if gh is not None:
+        outs.append(h)
+        gs.append(gh.to(h.dtype))
+    return torch.autograd.grad(outs, ins, gs)
+
+
+def _hold_ssd_bwd(got, x, dA, Bm, Cm, gy, gh, chunk):
+    """(dx, ddA, dB, dC) of the kernels held to f64 autograd of the plain
+    version: each finite, in its input's dtype, and within max(2 x the f32
+    plain backward's own error, 1e-4 x max|f64|).  Returns the kernel's
+    errors over max|f64|."""
+    ref = _ssd_grads(x, dA, Bm, Cm, gy, gh, torch.float64, chunk)
+    plain = _ssd_grads(x, dA, Bm, Cm, gy, gh, torch.float32, chunk)
+    rel = {}
+    for name, k, p, r, t in zip(("dx", "ddA", "dB", "dC"), got, plain, ref, (x, dA, Bm, Cm)):
+        assert k.dtype == p.dtype == t.dtype and k.shape == t.shape, name
+        assert torch.isfinite(k).all(), name
+        top = float(r.abs().max())
+        err_k = float((k.double() - r).abs().max())
+        err_p = float((p.double() - r).abs().max())
+        assert err_k <= max(2 * err_p, 1e-4 * top), \
+            f"{name}: kernel {err_k:.3e}, plain f32 {err_p:.3e}, max|f64| {top:.3e}"
+        rel[name] = err_k / top
+    return rel
+
+
+def _ssd_bwd_run(B, S, H, G, P, N, seed, model_dA, with_gh, dev):
+    """Inputs at these shapes, the forward kernel with its states, the
+    gradient of y (and of h) drawn from ``seed``, and the backward kernels'
+    gradients."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_with_states
+
+    x, dA, Bm, Cm = _ssd_inputs(B, S, H, G, P, N, torch.bfloat16, dev, seed, model_dA=model_dA)
+    r = np.random.default_rng(seed + 1)
+    gy = torch.from_numpy(r.normal(size=(B, S, H, P)).astype(np.float32)).to(dev)
+    gh = torch.from_numpy(r.normal(size=(B, H, P, N)).astype(np.float32)).to(dev) \
+        if with_gh else None
+    _, _, ws = ssd_scan_with_states(x, dA, Bm, Cm, S)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(x, dA, Bm, Cm, S, gy, gh, ws)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd.launches == before + 1
+    return got, (x, dA, Bm, Cm, gy, gh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,G,P,N,model_dA,with_gh", [
+    (4, 2048, 32, 1, 64, 128, True, False),   # mamba2's layer, the benchmark's pass
+    (2, 1024, 128, 1, 64, 128, True, False),  # granite's
+    (2, 384, 8, 1, 64, 128, True, True),
+    (2, 384, 8, 2, 64, 128, False, True),
+    (2, 384, 8, 4, 64, 128, True, False),
+    (2, 421, 8, 2, 64, 128, True, True),      # a ragged last chunk
+    (2, 96, 2, 1, 8, 16, False, True),
+    (1, 300, 4, 2, 72, 200, False, True),     # two boxes of P, two pairs of N
+    (2, 130, 4, 4, 24, 48, True, False),
+    (1, 200, 2, 1, 16, 20, False, True),      # N not a multiple of 8: scalar loads of B, C
+    (1, 200, 2, 2, 16, 13, True, True),       # nor of 4: scalar loads of g, h_in too
+], ids=["mamba2", "granite", "G1", "G2", "G4", "ragged", "P8-N16", "P72-N200", "P24-N48",
+        "P16-N20", "P16-N13"])
+def test_cuda_ssd_scan_bwd_matches_f64(cuda_device, B, S, H, G, P, N, model_dA, with_gh):
+    """The backward kernels against f64 autograd of the plain version (one
+    chunk of S where S is ragged, else 256 rows), with dA as the model draws
+    it where marked and the gradient of h where marked: every gradient
+    within max(2 x the f32 plain backward's own error, 1e-4 x max|f64|)."""
+    got, (x, dA, Bm, Cm, gy, gh) = _ssd_bwd_run(B, S, H, G, P, N, S + 28 * G, model_dA,
+                                                 with_gh, cuda_device)
+    chunk = 256 if S % 256 == 0 else S
+    rel = _hold_ssd_bwd(got, x, dA, Bm, Cm, gy, gh, chunk)
+    print(f"\nssd_scan_bwd B={B} S={S} H={H} G={G} P={P} N={N}: error / max|f64| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_bwd_is_deterministic_and_nan_free(cuda_device):
+    """mamba2's layer with the model's dA (exp above the diagonal would be
+    +inf): two calls give equal bits in every gradient, none of them NaN or
+    infinite (the masked triangle selects before its exp)."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_with_states
+
+    got, (x, dA, Bm, Cm, gy, gh) = _ssd_bwd_run(2, 512, 32, 1, 64, 128, 0, True, True,
+                                                 cuda_device)
+    assert float(dA.reshape(2, 4, 128, 32).cumsum(2).min()) < -100
+    _, _, ws = ssd_scan_with_states(x, dA, Bm, Cm, 512)
+    again = ssd_scan_bwd(x, dA, Bm, Cm, 512, gy, gh, ws)
+    for a, b in zip(got, again):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_bwd_rejects_what_it_does_not_take(cuda_device):
+    """f32 B/C (their forward keeps no states), a workspace of other shapes,
+    a gradient of y of another shape or dtype, CPU tensors: each raises
+    before any launch."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_with_states
+
+    x, dA, Bm, Cm = _ssd_inputs(1, 256, 4, 2, 64, 128, torch.bfloat16, cuda_device, 5)
+    gy = torch.randn(1, 256, 4, 64, device=cuda_device)
+    _, _, ws = ssd_scan_with_states(x, dA, Bm, Cm, 256)
+    before = ssd_scan_bwd.launches
+    with pytest.raises(TypeError, match="bf16"):
+        ssd_scan_bwd(x, dA, Bm.float(), Cm.float(), 256, gy, None, ws)
+    with pytest.raises(ValueError, match="workspace"):
+        ssd_scan_bwd(x, dA, Bm, Cm, 256, gy, None, ws[:-16])
+    with pytest.raises(ValueError, match="gy"):
+        ssd_scan_bwd(x, dA, Bm, Cm, 256, gy.double(), None, ws)
+    with pytest.raises(ValueError, match="gh"):
+        ssd_scan_bwd(x, dA, Bm, Cm, 256, gy, gy, ws)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_bwd(x.cpu(), dA.cpu(), Bm.cpu(), Cm.cpu(), 256, gy.cpu(), None, ws.cpu())
+    assert ssd_scan_bwd.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_scan_bwd_in_a_traced_lm_step(cuda_device):
+    """A bf16 reduced mamba2 under full remat, two traced fused steps on the
+    card: every SSD layer's spans say ``bwd_impl="kernel"``, the backward
+    kernels run once a layer and step (one call a ``bwd`` pass), and no
+    step's loss is non-finite."""
+    import dataclasses
+
+    from repro_torch.configs import CodingConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd
+    from repro_torch.models.lm import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.train.trainer import CodedTrainer
+
+    cfg = dataclasses.replace(get_config("mamba2-370m").reduced(), remat="full",
+                              dtype="bfloat16")
+    tracer = Tracer()
+    tr = CodedTrainer(build_model(cfg), CodingConfig(scheme="heter_aware", s=1),
+                      TrainConfig(), m=4, part_mb=2, device=cuda_device, trace=tracer)
+    data = SyntheticData(cfg, k=tr.k, part_mb=2, seq_len=64, seed=0)
+    state = tr.init_state(0)
+    before = ssd_scan_bwd.launches
+    steps = 2
+    for i in range(steps):
+        state, met = tr.step(state, data.batch(i))
+        assert np.isfinite(met["loss"])
+    spans = [r for r in tracer.records("span")
+             if r["name"] == "device.mixer" and r["args"]["kind"] == "ssd"]
+    passes = {p: sum(r["args"]["pass"] == p for r in spans) for p in ("fwd", "recompute", "bwd")}
+    assert {r["args"]["bwd_impl"] for r in spans} == {"kernel"}
+    assert passes == {p: steps * cfg.n_layers for p in passes}
+    assert ssd_scan_bwd.launches - before == passes["bwd"]
 
 
 @pytest.mark.gpu

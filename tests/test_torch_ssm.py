@@ -25,7 +25,9 @@ from repro.models import ssm as jssm
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan, ssd_scan_torch
+from repro_torch.kernels.ssd_scan import (
+    SSDScanFn, ssd_scan, ssd_scan_bwd_torch, ssd_scan_torch,
+)
 from repro_torch.models import ssm
 
 torch.set_num_threads(2)
@@ -199,6 +201,49 @@ def test_ssd_scan_fn_matches_plain_autograd(bc_dtype, use_h):
         assert torch.equal(a, b)
 
 
+def _with_saved(x, dA, Bm, Cm, chunk):
+    """The plain forward, and one tensor more for its backward to keep."""
+    y, h = ssd_scan_torch(x, dA, Bm, Cm, chunk)
+    return y, h, torch.zeros(3)
+
+
+@pytest.mark.parametrize("use_h", [False, True], ids=["gh-absent", "gh-present"])
+@pytest.mark.parametrize("forward_fn", [ssd_scan_torch, _with_saved], ids=["plain", "saving"])
+def test_ssd_scan_fn_with_the_plain_backward_fn_is_plain_autograd(forward_fn, use_h):
+    """SSDScanFn handed ``backward_fn=ssd_scan_bwd_torch`` (and a forward
+    that keeps a tensor of its own for the backward, or not): y and the
+    grads of x, dA and the bf16 Bm and Cm bit-equal to plain autograd's,
+    with the gradient of h present and absent."""
+    r = np.random.default_rng(10)
+    gy = torch.from_numpy(r.normal(size=(2, 32, 4, 8)).astype(np.float32))
+    gh = torch.from_numpy(r.normal(size=(2, 4, 8, 16)).astype(np.float32))
+    results = []
+    for via_fn in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in _grad_case(torch.bfloat16)]
+        if via_fn:
+            y, h = SSDScanFn.apply(*ins, 8, forward_fn, ssd_scan_bwd_torch)
+        else:
+            y, h = ssd_scan_torch(*ins, 8)
+        outs = [y, h] if use_h else [y]
+        grads = torch.autograd.grad(outs, ins, [gy, gh][:len(outs)])
+        results.append((y.detach(), grads))
+    (y1, g1), (y2, g2) = results
+    assert torch.equal(y1, y2)
+    for a, b in zip(g1, g2):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_ssd_backward_route_on_cpu_is_plain():
+    """On the CPU, or with ``impl="torch"``, the scan's backward is autograd
+    of the plain version whatever B and C's dtype (the card test
+    ``test_cuda_ssd_scan_fn_grads_match_plain`` holds bf16 B and C on the
+    card to the kernel backward)."""
+    for bc in (torch.float32, torch.bfloat16):
+        x, _, Bm, _ = _grad_case(bc)
+        assert ops.ssd_backward_impl(x, Bm) == "plain"
+        assert ops.ssd_backward_impl(x, Bm, impl="torch") == "plain"
+
+
 def test_ops_ssd_scan_dispatch_on_cpu():
     x, dA, Bm, Cm = _grad_case(torch.float32)
     before = ssd_scan.launches
@@ -315,3 +360,161 @@ def test_tensor_core_precision_scheme_within_the_group_tests_hold(G, S):
     y, h = _emulate_tensor_core_ssd(x, dA, Bm, Cm, "split")
     torch.testing.assert_close(y, py, atol=1e-4 * float(py.abs().max()), rtol=1e-3)
     torch.testing.assert_close(h, ph, atol=1e-4 * float(ph.abs().max()), rtol=1e-3)
+
+
+def _emulate_tensor_core_ssd_bwd(x, dA, Bm, Cm, dy, gh, scheme, L=128):
+    """The bf16 SSD backward kernels' arithmetic (csrc/ssd_scan.cu, the
+    ``ssd_bwd_*`` kernels) in PyTorch: chunks of L rows, a = cumsum(dA); the
+    states entering each chunk as the forward kernel keeps them
+    (:func:`_emulate_tensor_core_ssd`'s split); B C^T exact; the state
+    gradients (exp(a) dY)^T C and their reverse recurrence in f32; per
+    (chunk, head) B g^T and C h_in^T (g, h_in split: two products) scaled by
+    the tail and exp(a) after; X dY^T and M^T dY with M^T = B C^T (.) exp(a_i
+    - a_j) selected to 0 where i < j (both operands split: hi.hi + hi.lo +
+    lo.hi); da from T = D (.) M's row and column sums and the f32 row terms,
+    reverse-cumsummed; per group W^T = sum_h D^T (.) L^T, dB = W^T C + sum_h
+    tail (.) (X g), dC = W B + sum_h exp(a) (.) (dY h_in) (W split: two
+    products; X, g, dY, h_in split: three), rounded once to bf16.
+    ``"bf16_once"`` rounds each f32 operand once instead."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep, nc = H // G, -(-S // L)
+    def pad(t):  # rows past S: x = 0 adds nothing, dA = 0 decays by 1
+        return torch.nn.functional.pad(t.to(f32), (0, 0) * (t.dim() - 2) + (0, nc * L - S))
+
+    x, dA, Bm, Cm, dy = (pad(t) for t in (x, dA, Bm, Cm, dy))
+
+    def parts(t):
+        hi = t.to(bf16).to(f32)
+        return [hi, (t - hi).to(bf16).to(f32)] if scheme == "split" else [hi]
+
+    pairs = [(0, 0), (0, 1), (1, 0)] if scheme == "split" else [(0, 0)]
+
+    def split2(eq, u, v):  # u f32, split; v exact in bf16
+        return sum(torch.einsum(eq, t, v) for t in parts(u))
+
+    def split3(eq, u, v):  # both f32, split
+        U, V = parts(u), parts(v)
+        return sum(torch.einsum(eq, U[i], V[j]) for i, j in pairs)
+
+    def by_group(t):  # (B,nc,L,H,N) -> the sum over each group's heads
+        return t.reshape(B, nc, L, G, rep, N).sum(4)
+
+    xc, dyc = x.reshape(B, nc, L, H, P), dy.reshape(B, nc, L, H, P)
+    a = torch.cumsum(dA.reshape(B, nc, L, H), dim=2)  # (B,nc,L,H)
+    Bg, Cg = Bm.reshape(B, nc, L, G, N), Cm.reshape(B, nc, L, G, N)
+    Bh, Ch = Bg.repeat_interleave(rep, 3), Cg.repeat_interleave(rep, 3)
+    ea, tail = torch.exp(a), torch.exp(a[:, :, -1:] - a)
+    decay = torch.exp(a[:, :, -1])  # (B,nc,H)
+    # the states entering each chunk, as the forward kernel leaves them
+    states = split2("bclhp,bclhn->bchpn", xc * tail[..., None], Bh)
+    h, h_in = torch.zeros(B, H, P, N), []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * decay[:, c, :, None, None] + states[:, c]
+    h_in = torch.stack(h_in, 1)  # (B,nc,H,P,N)
+    # the chunk pass and the reverse recurrence: g, the gradient of the
+    # state leaving each chunk
+    dstate = split2("bclhp,bclhn->bchpn", dyc * ea[..., None], Ch)
+    g, gs = (torch.zeros(B, H, P, N) if gh is None else gh.to(f32)), [None] * nc
+    for c in range(nc - 1, -1, -1):
+        gs[c] = g
+        g = g * decay[:, c, :, None, None] + dstate[:, c]
+    g = torch.stack(gs, 1)
+    # the dx pass, rows j and columns i
+    dxs = tail[..., None] * split2("bchpn,bcjhn->bcjhp", g, Bh)
+    Z = split2("bchpn,bcihn->bcihp", h_in, Ch)
+    Dt = split3("bcjhp,bcihp->bchji", xc, dyc)
+    at = a.permute(0, 1, 3, 2)[..., None, :]  # a_i along the last dim
+    upper = torch.ones(L, L, dtype=torch.bool).triu()  # i >= j
+    Lt = torch.exp((at - at.transpose(-1, -2)).masked_fill(~upper, float("-inf")))
+    Mt = torch.einsum("bcjgn,bcign->bcgji", Bg, Cg).repeat_interleave(rep, 2) * Lt
+    dx = dxs + split3("bchji,bcihp->bcjhp", Mt, dyc)
+    T = Dt * Mt
+    da = (T.sum(-2) - T.sum(-1)).permute(0, 1, 3, 2) + ea * (dyc * Z).sum(-1) - (xc * dxs).sum(-1)
+    da[:, :, -1] += (xc * dxs).sum((-1, -3)) + decay * (g * h_in).sum((-1, -2))
+    ddA = torch.flip(torch.cumsum(torch.flip(da, [2]), 2), [2])
+    # the dB / dC pass
+    Wt = (Dt * Lt).reshape(B, nc, G, rep, L, L).sum(3)  # (B,nc,G,j,i)
+    dB = split2("bcgji,bcign->bcjgn", Wt, Cg) + by_group(
+        tail[..., None] * split3("bcjhp,bchpn->bcjhn", xc, g))
+    dC = split2("bcgji,bcjgn->bcign", Wt, Bg) + by_group(
+        ea[..., None] * split3("bcihp,bchpn->bcihn", dyc, h_in))
+    cut = lambda t, shape: t.reshape(B, nc * L, *shape)[:, :S]  # noqa: E731
+    return cut(dx, (H, P)), cut(ddA, (H,)), cut(dB, (G, N)).to(bf16), cut(dC, (G, N)).to(bf16)
+
+
+def _ssd_grads(x, dA, Bm, Cm, dy, gh, dtype, chunk):
+    """Autograd of the plain version in ``dtype``: f64 with B and C widened,
+    or f32 with the bf16 B and C as given (their gradients in bf16)."""
+    wide = dtype == torch.float64
+    ins = [t.to(dtype if wide or i < 2 else t.dtype).detach().requires_grad_(True)
+           for i, t in enumerate((x, dA, Bm, Cm))]
+    y, h = ssd_scan_torch(*ins, chunk)
+    outs, gs = [y], [dy.to(y.dtype)]
+    if gh is not None:
+        outs.append(h)
+        gs.append(gh.to(h.dtype))
+    return torch.autograd.grad(outs, ins, gs)
+
+
+def _model_layer_inputs(B, S, H, G, P, N, seed):
+    """x·dt, dA as mamba2's layer draws them (A = -(1..H)), bf16 B and C and
+    the gradient of y, from ``seed``."""
+    r = np.random.default_rng(seed)
+    dt0 = np.exp(r.uniform(size=H) * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+    dt = np.logaddexp(r.normal(size=(B, S, H)) + dt0 + np.log(-np.expm1(-dt0)), 0.0)
+    A = -np.arange(1, H + 1, dtype=np.float64)
+    x = torch.from_numpy((r.normal(size=(B, S, H, P)) * dt[..., None]).astype(np.float32))
+    dA = torch.from_numpy((dt * A).astype(np.float32))
+    Bm, Cm = (torch.from_numpy(r.normal(size=(B, S, G, N)).astype(np.float32)).to(torch.bfloat16)
+              for _ in range(2))
+    dy = torch.from_numpy(r.normal(size=(B, S, H, P)).astype(np.float32))
+    return x, dA, Bm, Cm, dy
+
+
+def _over_the_hold(got, x, dA, Bm, Cm, dy, gh, chunk):
+    """The gradients of ``got`` (dx, ddA, dB, dC) over the card tests' hold:
+    max(2 x the f32 plain backward's own error, 1e-4 x max|f64|) of f64
+    autograd of the plain version."""
+    ref = _ssd_grads(x, dA, Bm, Cm, dy, gh, torch.float64, chunk)
+    plain = _ssd_grads(x, dA, Bm, Cm, dy, gh, torch.float32, chunk)
+    over = []
+    for name, k, p, r in zip(("dx", "ddA", "dB", "dC"), got, plain, ref):
+        assert k.dtype == p.dtype and k.shape == p.shape
+        err_p = float((p.double() - r).abs().max())
+        if float((k.double() - r).abs().max()) > max(2 * err_p, 1e-4 * float(r.abs().max())):
+            over.append(name)
+    return over
+
+
+@pytest.mark.parametrize("scheme,within", [("split", True), ("bf16_once", False)])
+def test_tensor_core_backward_precision_holds_the_full_layer(scheme, within):
+    """The SSD backward kernels' precision scheme against f64 autograd of the
+    plain version (chunk 256) at the full mamba2 layer (B=2, S=512, H=32,
+    P=64, G=1, N=128) with dA as the model draws it (cumsum over a chunk
+    near -700), at the card tests' hold: every f32 operand split into bf16
+    hi + lo keeps all four gradients within max(2 x the f32 plain
+    backward's error, 1e-4 x max|f64|); rounded once to bf16, dx and ddA
+    (and dC at this seed) are over it."""
+    x, dA, Bm, Cm, dy = _model_layer_inputs(2, 512, 32, 1, 64, 128, 28)
+    assert float(dA.reshape(2, -1, 256, 32).cumsum(2).min()) < -300
+    got = _emulate_tensor_core_ssd_bwd(x, dA, Bm, Cm, dy, None, scheme)
+    over = _over_the_hold(got, x, dA, Bm, Cm, dy, None, 256)
+    assert (over == []) == within, f"{scheme}: {over} over the hold"
+    if not within:
+        assert {"dx", "ddA"} <= set(over), over
+
+
+@pytest.mark.parametrize("with_gh", [False, True], ids=["gh-absent", "gh-present"])
+def test_tensor_core_backward_precision_holds_granite_heads(with_gh):
+    """The split scheme at granite's 128 heads (B=1, S=384: three kernel
+    chunks, the last ragged against the plain version's one chunk of 384),
+    with the model's dA, with and without a gradient of h: every gradient
+    within the card tests' hold."""
+    x, dA, Bm, Cm, dy = _model_layer_inputs(1, 384, 128, 1, 64, 128, 29)
+    gh = torch.from_numpy(np.random.default_rng(30).normal(size=(1, 128, 64, 128))
+                          .astype(np.float32)) if with_gh else None
+    got = _emulate_tensor_core_ssd_bwd(x, dA, Bm, Cm, dy, gh, "split")
+    assert _over_the_hold(got, x, dA, Bm, Cm, dy, gh, 384) == []
