@@ -174,14 +174,10 @@ never imports ``jax`` or the JAX package):
      bit-equal to the default launch, its time beside the default's, the
      plain version's, ``torch.mv``'s and ``best_reduce_schedule``'s pick,
      and every candidate launch shape bit-equal to the default at ragged D,
-     a misaligned base and int8 / bf16 stacks; (a) full-width smollm-360m
-     through ``StepEngine`` on ``fused`` at phase 1's shapes, three steps
-     with ``host_pack=True`` and three with the device pack from the same
-     weights and batches (losses and grad norms to rtol 1e-6, bit-equality
-     printed; median ``phase.pack+upload`` against ``phase.upload``, each
-     step's time); (c) the four ``examples/torch/*.py`` on the card, each a
-     process of its own, all started together, each exiting 0 with its own
-     checks passing, their wall times printed;
+     a misaligned base and int8 / bf16 stacks; (c) the four
+     ``examples/torch/*.py`` on the card, each a process of its own, all
+     started together, each exiting 0 with its own checks passing, their
+     wall times printed;
  14. a JSON line of the kernels, then the card as the last line.
 
 Each main path and serving path is driven with every kernel's launch count
@@ -2821,10 +2817,9 @@ def large_model_path(torch) -> dict:
     return out
 
 
-# phase 13, the last modules: the engine's host pack at phase 1's shapes,
-# the coded_reduce launch-shape tuner at smollm's wire, the ported examples,
-# and the dry run's decode cells over a sequence-sharded KV cache
-HOST_PACK = dict(part_mb=2, seq=64, steps=3)
+# phase 13, the last modules: the coded_reduce launch-shape tuner at
+# smollm's wire, the ported examples, and the dry run's decode cells over a
+# sequence-sharded KV cache
 EXAMPLES = ROOT / "examples" / "torch"
 EXAMPLE_ENV = {"quickstart": {}, "train_coded": {"SMOKE": "1"}, "serve_lm": {},
                "elastic_restart": {}}
@@ -2837,76 +2832,6 @@ REPAIRED_CELLS = (("chatglm3-6b", "decode_32k", "single"), ("mixtral-8x7b", "lon
 TUNE_CHECKS = (("f32 ragged", "float32", 5, 1_000_003, 0), ("f32 unaligned", "float32", 5,
                1 << 22, 1), ("bf16 ragged", "bfloat16", 4, 1_000_001, 0),
                ("int8 ragged", "int8", 4, 1_000_005, 0), ("int8 aligned", "int8", 4, 1 << 24, 0))
-
-
-def host_pack_path(torch) -> dict:
-    """Phase 13 (a): full-width smollm-360m through ``StepEngine`` on
-    ``fused`` at phase 1's shapes (heter_aware, m 4, s 1, part_mb 2, seq 64),
-    three steps with ``host_pack=True`` and three with the device pack from
-    the same weights and batches, one straggler a step: the losses and grad
-    norms equal at rtol 1e-6 (whether bit-equal is printed), the median
-    ``phase.pack+upload`` against the device pack's ``phase.upload``, and
-    each step's host-clock time (ending in a synchronize)."""
-    import gc
-
-    from repro_torch.configs import CodingConfig, TrainConfig, get_config
-    from repro_torch.core.codec import Codec
-    from repro_torch.data.pipeline import SyntheticData
-    from repro_torch.models.lm import build_model
-    from repro_torch.obs.trace import Tracer
-    from repro_torch.optim.adam import adamw_init
-    from repro_torch.train.engine import StepEngine, TrainerState
-
-    cfg = get_config(ARCH)
-    model = build_model(cfg)
-    codec = Codec.from_config(CodingConfig(scheme="heter_aware", s=S), m=M, rng=1)
-    data = SyntheticData(cfg, k=codec.k, part_mb=HOST_PACK["part_mb"], seq_len=HOST_PACK["seq"])
-    steps = HOST_PACK["steps"]
-    batches = [data.batch(i) for i in range(steps)]
-    outcomes = [codec.decode_outcome([w for w in range(M) if w != i % M]) for i in range(steps)]
-    runs = {}
-    for host_pack in (True, False):
-        eng = StepEngine(model, TrainConfig(), codec, backend="fused", device="cuda",
-                         host_pack=host_pack)
-        eng.tracer = Tracer()
-        params = model.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
-        state = TrainerState(params=params, opt=adamw_init(params), step=0)
-        times, mets = [], []
-        for batch, outcome in zip(batches, outcomes):
-            t0 = time.perf_counter()
-            state, met = eng.step(state, batch, outcome)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            mets.append({"loss": met["loss"], "grad_norm": met["grad_norm"]})
-        name = "phase.pack+upload" if host_pack else "phase.upload"
-        spans = eng.tracer.records(kind="span", name=name)
-        if len(spans) != steps:
-            raise AssertionError(f"host_pack={host_pack}: {len(spans)} {name} spans")
-        fused = eng.tracer.records(kind="span", name="phase.fused")
-        runs[host_pack] = {"metrics": mets, "step_s": times,
-                           "upload_ms": [1e3 * (r["t1"] - r["t0"]) for r in spans],
-                           "fused_ms": [1e3 * (r["t1"] - r["t0"]) for r in fused]}
-        del eng, params, state
-        gc.collect()
-        torch.cuda.empty_cache()
-    host, dev = runs[True], runs[False]
-    for i, (a, b) in enumerate(zip(host["metrics"], dev["metrics"])):
-        for key in ("loss", "grad_norm"):
-            if not math.isclose(a[key], b[key], rel_tol=1e-6):
-                raise AssertionError(f"host pack vs device pack, step {i}: {key} {a[key]!r} "
-                                     f"vs {b[key]!r} (rtol 1e-6)")
-    bit_equal = host["metrics"] == dev["metrics"]
-    out = {"host_pack": host, "device_pack": dev, "bit_equal": bit_equal,
-           "upload_median_ms": {"host": statistics.median(host["upload_ms"]),
-                                "device": statistics.median(dev["upload_ms"])}}
-    log(f"phase 13 (a) {ARCH} fused, host pack vs device pack over {steps} steps: losses "
-        f"{[m['loss'] for m in host['metrics']]} / {[m['loss'] for m in dev['metrics']]}, grad "
-        f"norms {[m['grad_norm'] for m in host['metrics']]} / "
-        f"{[m['grad_norm'] for m in dev['metrics']]} (rtol 1e-6; bit-equal: {bit_equal}); "
-        f"median phase.pack+upload {out['upload_median_ms']['host']:.3f} ms vs phase.upload "
-        f"{out['upload_median_ms']['device']:.3f} ms; steps (s) "
-        f"{[round(t, 4) for t in host['step_s']]} / {[round(t, 4) for t in dev['step_s']]}")
-    return out
 
 
 def tuner_path(torch, cr, n_slots: int) -> dict:
@@ -3183,12 +3108,11 @@ def main() -> int:
     large = large_model_path(torch)
 
     # 13. the last modules: (b) the launch-shape tuner alone on the card,
-    # (a) the host pack, (c) the examples
+    # (c) the examples
     t13 = time.perf_counter()
     tuned = tuner_path(torch, cr, n_slots)
-    hpack = host_pack_path(torch)
     examples = examples_path(torch)
-    log(f"phase 13 (a)-(c) took {time.perf_counter() - t13:.1f} s")
+    log(f"phase 13 (b)-(c) took {time.perf_counter() - t13:.1f} s")
     best = tuned["rows"][0]
 
     # the kernels line, then the card
@@ -3362,7 +3286,7 @@ def main() -> int:
     log(f"summary: family f32 checks {json.dumps(fam_f32, default=str)}")
     log(f"summary: group {json.dumps(group, default=str)}")
     log(f"summary: large-model levers {json.dumps(large, default=str)}")
-    log(f"summary: last modules {json.dumps({'tuner': tuned, 'host_pack': hpack, 'examples': examples}, default=str)}")
+    log(f"summary: last modules {json.dumps({'tuner': tuned, 'examples': examples}, default=str)}")
     log(f"summary: chip_smoke took {time.perf_counter() - _T0:.1f} s to its summary")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,10 +15,12 @@
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import autotune, wire
 from repro_torch.kernels.coded_reduce import coded_reduce as _coded_reduce_kernel
 from repro_torch.kernels.coded_reduce import coded_reduce_torch
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention_torch, flash_attention_train_torch
 from repro_torch.kernels.flash_attention import flash_attention_train as _flash_train_kernel
@@ -89,13 +91,24 @@ def flash_attention_train(
 ) -> torch.Tensor:
     """Training attention with the model's rounding, differentiable either
     way: q (B,S,H,hd) already scaled by hd^-0.5, k / v (B,S,K,hd) ->
-    (B,S,H,hd).  The kernels (bf16; they raise on what they do not take)
-    through ``FlashAttentionTrainFn``, the plain version (the model's
-    chain) by autograd.  ``models.attention`` decides which and passes
-    "cuda" or "torch"."""
-    if _resolve(impl, q) == "torch":
+    (B,S,H,hd).  The kernels through ``FlashAttentionTrainFn``, the plain
+    version (the model's chain) by autograd: :func:`flash_train_impl` says
+    which a call gets."""
+    if flash_train_impl(q, impl) == "plain":
         return flash_attention_train_torch(q, k, v, causal=causal, window=window)
     return _flash_train_kernel(q, k, v, causal=causal, window=window)
+
+
+def flash_train_impl(q: torch.Tensor, impl: str | None = None) -> str:
+    """What runs :func:`flash_attention_train` for this q and ``impl``:
+    "kernel", the hand-written forward and backward, for a plain (not
+    DTensor) bf16 q on the card with a head size in ``HEAD_DIMS``, or
+    "plain", the model's chain (the CPU, f32, hubert's head size,
+    ``impl="torch"``)."""
+    cuda = _resolve(impl, q) == "cuda"
+    kernel = (cuda and not isinstance(q, DTensor) and q.dtype == torch.bfloat16
+              and q.shape[-1] in HEAD_DIMS)
+    return "kernel" if kernel else "plain"
 
 
 def ssd_scan(

@@ -14,12 +14,11 @@ there (None: by device).  Those keep p in f32 and scale q in f32,
 so in bf16 they round differently from the model's own attention (by about
 one bf16 ulp of p and of the output); in f32 they agree to summation order.
 Training runs ``kernels.ops.flash_attention_train``: the hand-written
-forward and backward, with the model's rounding, where :func:`train_kernel`
-says the kernels take the tensors (plain bf16 tensors on the card with a
-head size in ``HEAD_DIMS`` and ``impl`` not "torch"), and its plain
-version, the model's own chain, everywhere else (the CPU, f32, hubert's
-head size, ``impl="torch"``).  The dry run's DTensors run the same chain
-with the head split and the batch anchored by ``models.sharding``.
+forward and backward, with the model's rounding, where
+``ops.flash_train_impl`` says the kernels take the tensors, and its plain
+version, the model's own chain, everywhere else.  The dry run's DTensors
+run the same chain with the head split and the batch anchored by
+``models.sharding``.
 
 Sliding windows (mixtral): train and prefill mask ``kpos > qpos - window``
 (the flash kernel takes the window too); prefill returns a RING cache of
@@ -44,12 +43,11 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.sharding import on_cache_shards, shard_batch, split_dim
 from repro_torch.obs.trace import NULL_SPAN
 
-__all__ = ["NEG_INF", "attention_decode", "attention_forward", "train_kernel"]
+__all__ = ["NEG_INF", "attention_decode", "attention_forward"]
 
 NEG_INF = -1e30
 
@@ -84,15 +82,6 @@ def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _neg_inf(s: torch.Tensor) -> torch.Tensor:
     return torch.full((), NEG_INF, dtype=s.dtype, device=s.device)
-
-
-def train_kernel(x: torch.Tensor, head_dim: int, impl: str | None) -> bool:
-    """Whether training attention on tensors like ``x`` (its q, k and v)
-    runs the hand-written kernels: a plain (not DTensor) bf16 tensor on
-    the card, a head size the kernels are built for, and ``impl`` not
-    "torch"."""
-    return (impl != "torch" and not isinstance(x, DTensor) and x.is_cuda
-            and x.dtype == torch.bfloat16 and head_dim in HEAD_DIMS)
 
 
 def _sharded_chain(q, k, v, kpos, *, n_kv, head_dim, causal, window,
@@ -143,7 +132,7 @@ def attention_forward(
     ``flash`` runs ``ops.flash_attention`` with ``impl`` in place of the
     model's own attention (prefill).  Without it (training),
     ``ops.flash_attention_train`` runs the kernels where
-    :func:`train_kernel` admits q and its plain version elsewhere, and
+    ``ops.flash_train_impl`` admits q and its plain version elsewhere, and
     DTensors run :func:`_sharded_chain`; the choice is set on ``region``
     (the layer's ``device.mixer`` span) as ``impl``, "kernel" or
     "plain".  ``scale`` is the score scale q is multiplied by (None:
@@ -165,11 +154,9 @@ def attention_forward(
         out = _sharded_chain(q, k, v, pos[0], n_kv=n_kv, head_dim=head_dim, causal=causal,
                              window=window, scale=scale)
     else:
-        kernel = train_kernel(q, head_dim, impl)
-        region.set(impl="kernel" if kernel else "plain")
+        region.set(impl=ops.flash_train_impl(q, impl))
         o = ops.flash_attention_train((q * scale).contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=causal, window=window,
-                                      impl="cuda" if kernel else "torch")
+                                      v.contiguous(), causal=causal, window=window, impl=impl)
         out = o.reshape(B, S, n_heads * head_dim)
     out = out @ params["wo"]
     cache = None

@@ -41,10 +41,8 @@ MoE's with the routing's shape, ``impl`` and ``pairs``, the pairs routed to
 held experts, a device count read once the step has synchronized), and
 ``device.head_loss`` (final norm, logits, log-softmax, NLL and the
 weighted sum), each in its forward, recompute and backward pass
-(:meth:`repro_torch.obs.trace.Tracer.device_span`); with a dropless MoE,
-the counter ``moe.expert_load_max`` once a step
-(:meth:`LM._record_expert_load`).  Tracing off adds no autograd node and
-the gradients are bit-equal either way.
+(:meth:`repro_torch.obs.trace.Tracer.device_span`).  Tracing off adds no
+autograd node and the gradients are bit-equal either way.
 
 Sharding: :meth:`LM.param_specs` and :meth:`LM.fsdp_specs` give each
 parameter's layout as a tuple of mesh-axis names a dim (JAX's
@@ -195,7 +193,7 @@ class LM:
     one, ``"torch"`` for the plain version anywhere.  ``attn_impl`` picks
     the attention of :meth:`prefill` the same way (the flash kernel or its
     plain version) and of :meth:`forward`, the training path: the training
-    kernels (forward and backward) where ``attention.train_kernel`` admits
+    kernels (forward and backward) where ``ops.flash_train_impl`` admits
     the tensors, the model's own chain otherwise and with ``"torch"``.
     Decode runs plain attention over the cache."""
 
@@ -209,7 +207,6 @@ class LM:
         self.ssd_impl = ssd_impl
         self.attn_impl = attn_impl
         self.tracer = NULL_TRACER  # the trainer installs its own
-        self._loads: list[torch.Tensor] = []  # a traced forward's held-expert pair counts
 
     # -- init ----------------------------------------------------------------
 
@@ -329,15 +326,13 @@ class LM:
     def _moe(self, bp: dict[str, torch.Tensor], h: torch.Tensor, region=NULL_SPAN):
         """The MoE on the normed input ``h`` in the form ``cfg.moe_dispatch``
         names, plus the shared expert where the config has one: (y, aux
-        (B,)).  The dropless form sets ``pairs`` on ``region`` and keeps its
-        counts for the step's ``moe.expert_load_max`` when traced."""
+        (B,)).  The dropless form sets ``pairs`` on ``region``."""
         cfg = self.cfg
         if cfg.moe_dispatch == "dropless":
             y, a, counts = moe_apply_dropless(_sub(bp, "moe."), h, top_k=cfg.top_k,
                                               offset=cfg.expert_offset, act=cfg.act)
             if region is not NULL_SPAN:
                 region.set(pairs=self.tracer.device_value(counts.sum()))
-                self._loads.append(counts)
         else:
             moe_fn = moe_apply_dense if cfg.moe_dispatch == "dense" else moe_apply
             y, a = moe_fn(_sub(bp, "moe."), h, top_k=cfg.top_k,
@@ -345,18 +340,6 @@ class LM:
         if cfg.shared_d_ff:
             y = y + mlp(_sub(bp, "shared."), h, cfg.act)
         return y, a
-
-    def _record_expert_load(self) -> None:
-        """The counter ``moe.expert_load_max`` of a traced forward: in each
-        dropless MoE layer the most pairs a held expert got over the held
-        experts' mean (1 where none got any), the largest over the layers.
-        A device value, recorded once the step has synchronized."""
-        if self._loads:
-            c = torch.stack(self._loads).float()  # (layers, held)
-            mean = c.mean(1)
-            load = torch.where(mean > 0, c.amax(1) / mean.clamp(min=1e-30), torch.ones_like(mean))
-            self.tracer.device_counter("moe.expert_load_max", load.amax())
-        self._loads = []
 
     def _mixer(self, spec: LayerSpec, bp: dict[str, torch.Tensor], x: torch.Tensor,
                positions: torch.Tensor, mode: str, cache: dict | None, pos: torch.Tensor | None,
@@ -491,7 +474,6 @@ class LM:
             x = region.output(self._embed(params, batch, region.input))
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        self._loads = []
         # one unbind per stacked leaf: its backward stacks the per-layer
         # grads once, instead of a full-size scatter per layer
         blocks = [{k: v.unbind(0) for k, v in layer.items()} for layer in self._layers(params)]
@@ -557,8 +539,6 @@ class LM:
             if weight is not None:
                 loss = (loss * weight).sum()
             loss = region.output(loss)
-        if tr.enabled:
-            self._record_expert_load()
         return loss
 
     # -- serving: prefill, decode and the slot cache ---------------------------

@@ -33,9 +33,8 @@ bracketed by two identity autograd markers (``span.output`` opens it,
 their own span.  On the CPU, where work runs as it is issued, the region
 reads the host clock instead and the records are the same.  A number the
 device computes rides along the same way (:meth:`Tracer.device_value` as a
-region's arg, :meth:`Tracer.device_counter`): copied to pinned host memory
-on the stream, without a synchronize, and read when its step's regions are
-placed.
+region's arg): copied to pinned host memory on the stream, without a
+synchronize, and read when its step's regions are placed.
 
 Zero-overhead-when-off contract: instrumented code holds a tracer
 reference that is either a real :class:`Tracer` (``enabled = True``) or
@@ -118,9 +117,6 @@ class NullTracer:
 
     def device_value(self, t):
         return None
-
-    def device_counter(self, name: str, value) -> None:
-        pass
 
     def instant(self, name: str, **kw) -> None:
         pass
@@ -379,12 +375,6 @@ class Tracer:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         return host.copy_(t, non_blocking=True)
 
-    def device_counter(self, name: str, value) -> None:
-        """A counter sample whose value (a 0-d tensor) the device computes:
-        recorded at the synchronize that ends its step, when
-        :meth:`place_regions` places that step's regions."""
-        self._device_region(name, None, None, {"value": self.device_value(value)})
-
     def sync_device(self, device=None) -> float:
         """Wait for ``device``; returns the clock after the wait.  The device
         regions recorded since the last call are kept with an anchor event,
@@ -425,9 +415,6 @@ class Tracer:
         idle = []
         for name, a, b, args in pending:
             args = {k: v.tolist() if _is_tensor(v) else v for k, v in args.items()}
-            if a is None:  # a device counter
-                self.counter(name, args["value"], t=T)
-                continue
             if not isinstance(a, float):
                 idle += (a, b)
                 a, b = (T - e.elapsed_time(anchor) * 1e-3 for e in (a, b))

@@ -4,9 +4,7 @@ gradient backends (the port of ``src/repro/train/engine.py``).
   - ``fused``     — encode/decode folded into per-sequence loss weights;
                     one forward/backward over the (s+1)×-replicated coded
                     batch, packed on the device from the k·mb unique
-                    sequences (or, with ``host_pack``, packed on the host
-                    in numpy and uploaded whole: the baseline the device
-                    pack is held against).
+                    sequences.
   - ``reference`` — the paper's protocol verbatim (O(m·n) backward
                     passes).  The oracle.
   - ``spmd``      — the wire protocol: per-worker flat encode and the
@@ -145,9 +143,7 @@ class StepEngine:
     carried error-feedback row is bit-equal to the row its worker held
     before, and joiners' rows zero; the audits land in ``row_audits``.
     ``wire_out``, when a dict, receives the int8 wire each compressed
-    fused-kernel decode read (``q``, ``ws``).  ``host_pack`` (fused only)
-    packs the coded batch on the host (:meth:`_flat_batch`) and uploads it
-    whole, in place of the device pack.
+    fused-kernel decode read (``q``, ``ws``).
     """
 
     def __init__(
@@ -161,7 +157,6 @@ class StepEngine:
         compress: bool = False,
         wire_kernel: bool | None = None,
         group: CodedGroup | None = None,
-        host_pack: bool = False,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
@@ -174,7 +169,6 @@ class StepEngine:
         self.group = group
         self.device = group.device if group is not None else torch.device(device)
         self.compress = compress
-        self.host_pack = host_pack
         # fused int8 wire kernel: None defers to the probe, on only where
         # the fused encode measured faster on this card (never on a CPU)
         if wire_kernel is None:
@@ -264,30 +258,6 @@ class StepEngine:
             for k, v in partition_batch.items()
         }
 
-    def _flat_batch(
-        self, partition_batch: dict, a: np.ndarray, support: np.ndarray | None = None,
-    ) -> dict[str, np.ndarray]:
-        """HOST-side pack: partition-major (k, mb, ...) -> the flat coded
-        batch (m·n_slots·mb, ...) in slot-major order, with decode and
-        encode folded into per-sequence weights, in numpy.  The
-        ``host_pack=True`` baseline the device pack is held against."""
-        plan = self.codec.plan
-        idx = plan.slot_pids.reshape(-1)  # (m*n_slots,)
-        out = {}
-        mb = None
-        for key, arr in partition_batch.items():
-            arr = arr.cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
-            mb = arr.shape[1]
-            out[key] = arr[idx].reshape((-1,) + arr.shape[2:])
-        w = slot_weights(plan, a, support)  # (m, n_slots), includes the 1/k
-        out["weight"] = (np.repeat(w.reshape(-1), mb) / mb).astype(np.float32)
-        return out
-
-    def _host_batch(self, partition_batch: dict, a, support) -> dict[str, torch.Tensor]:
-        """:meth:`_flat_batch` uploaded, one tensor a key."""
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in self._flat_batch(partition_batch, a, support).items()}
-
     def _device_batch(self, pbatch: dict, a, support) -> dict[str, torch.Tensor]:
         """On-device pack + slot weights: the flat coded batch, the weights
         made in f64 from the decode vector and B and each partition's total
@@ -315,11 +285,11 @@ class StepEngine:
         is finite iff every leaf is) must never touch params or optimizer
         moments, so a non-finite norm skips the in-place update and the
         caller sees the skip in the returned grad norm.  Traced on the
-        device-pack fused path, it records the norm and its read
+        fused path, it records the norm and its read
         (``phase.grad_norm``) and the update's launch (``phase.apply``)."""
         tc = self.tc
         tr = self.tracer
-        phases = tr.enabled and self.backend == "fused" and not self.host_pack
+        phases = tr.enabled and self.backend == "fused"
         lr = self._lr(step)
         t0 = tr.clock() if phases else 0.0
         gnorm = float(global_norm(grads))
@@ -745,8 +715,6 @@ class StepEngine:
         the process-group path every rank of the world calls it together,
         rank 0's ``a`` is used, and a rank outside the group gets None."""
         a, support = self._split_decode(a)
-        if self.backend == "fused" and self.host_pack:
-            return self._value_and_grad(params, self._host_batch(partition_batch, a, support))[1]
         pbatch = self._to_device(partition_batch)
         if self.group is not None:
             # every rank of the world; None outside the group
@@ -777,10 +745,8 @@ class StepEngine:
         ``phase.backward`` (their launch), ``phase.loss_sync`` (the host
         placing the last step's device regions, then waiting for the loss),
         ``phase.grad_norm``, ``phase.apply`` (the AdamW launch) and
-        ``phase.sync``; with ``host_pack``
-        ``phase.pack+upload`` (on the host) and ``phase.fused``; the
-        gradients (``phase.pack+encode+wire+decode`` on spmd,
-        ``phase.gradients`` on reference), ``phase.loss`` and
+        ``phase.sync``; the gradients (``phase.pack+encode+wire+decode``
+        on spmd, ``phase.gradients`` on reference), ``phase.loss`` and
         ``phase.apply`` on the others.  The last span of a step closes after
         a device synchronize."""
         tr = self.tracer
@@ -789,20 +755,11 @@ class StepEngine:
         if traced:
             tr.step = int(state.step)
         a_vec, support = self._split_decode(a)
-        host_pack = self.backend == "fused" and self.host_pack
-        fused = self.backend == "fused" and not host_pack
-        pbatch = None if host_pack else self._to_device(partition_batch)
+        fused = self.backend == "fused"
+        pbatch = self._to_device(partition_batch)
         if self.group is not None:
             return self._group_step(state, pbatch, a_vec, support)
-        if host_pack:
-            batch = self._host_batch(partition_batch, a_vec, support)
-            if traced:
-                t1 = tr.clock()
-                tr.span_at("phase.pack+upload", t0, t1, clock="wall", where="host")
-                tr.phase = "phase.fused"
-            loss, grads = self._value_and_grad(state.params, batch)
-            del batch
-        elif fused:
+        if fused:
             batch = self._device_batch(pbatch, a_vec, support)
             if traced:
                 t1 = tr.clock()
@@ -831,7 +788,7 @@ class StepEngine:
         loss = float(loss)
         if traced and fused:
             tr.span_at("phase.loss_sync", tl, tr.clock(), clock="wall")
-        elif traced and self.backend != "fused":
+        elif traced:
             t2 = tr.clock()
             tr.span_at("phase.loss", t1, t2, clock="wall")
         params, opt, gnorm, lr = self._adamw(state.params, grads, state.opt, state.step)
@@ -839,10 +796,7 @@ class StepEngine:
         if traced:
             ts = tr.clock()
             t_end = tr.sync_device(self.device)
-            if host_pack:
-                tr.span_at("phase.fused", t1, t_end, clock="wall",
-                           phases="fwd+bwd+decode+apply")
-            elif fused:
+            if fused:
                 tr.span_at("phase.sync", ts, t_end, clock="wall")
                 tr.span_at("phase.fused", t1, t_end, clock="wall", phases="fwd+bwd+apply")
             else:

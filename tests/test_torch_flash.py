@@ -309,19 +309,19 @@ def test_train_backward_precision_scheme_holds_f32_autograd(scheme, within):
 
 def test_train_route_never_launches_off_the_kernels_inputs():
     """The route: CPU tensors, ``attn_impl="torch"``, f32 and a head size the
-    kernels lack (hubert's 80) keep the model's chain; an LM training step
-    on the CPU launches neither training kernel, and its mixer spans say
-    ``impl="plain"``."""
+    kernels lack (hubert's 80) keep the model's chain (``impl="cuda"`` on
+    CPU tensors is refused); an LM training step on the CPU launches
+    neither training kernel, and its mixer spans say ``impl="plain"``."""
     from repro_torch.configs import get_config
-    from repro_torch.models.attention import train_kernel
     from repro_torch.models.lm import build_model
     from repro_torch.obs import Tracer
 
-    x = torch.zeros(1, 2, 8, dtype=torch.bfloat16)
-    assert not train_kernel(x, 64, None)
-    assert not train_kernel(x, 64, "cuda")
-    meta = torch.zeros(1, 2, 8, dtype=torch.bfloat16, device="meta")
-    assert not train_kernel(meta, 64, None)
+    x = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16)
+    assert ops.flash_train_impl(x, None) == "plain"
+    with pytest.raises(ValueError):
+        ops.flash_train_impl(x, "cuda")
+    meta = torch.zeros(1, 2, 1, 64, dtype=torch.bfloat16, device="meta")
+    assert ops.flash_train_impl(meta, None) == "plain"
     before = (fa.flash_attention_train_fwd.launches, fa.flash_attention_train_bwd.launches)
     for arch, impl in (("smollm-360m", None), ("smollm-360m", "torch"), ("hubert-xlarge", None)):
         cfg = get_config(arch).reduced()

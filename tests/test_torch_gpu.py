@@ -4,9 +4,9 @@ and decode, the SSD scan (with its autograd Function), flash attention
 (prefill's forward, and training's forward and backward under autograd);
 and a reduced serving run whose prefill launches the kernels; every
 launch shape of coded_reduce and ``impl="best"``'s tuned one bit-equal to
-the default launch; the engine's ``host_pack`` on the card; the model's
-device regions (CUDA events placed on the host clock); and two
-``torch.distributed`` ranks sharing the card over gloo, whose decoded
+the default launch; the model's device regions (CUDA events placed on the
+host clock); and two ``torch.distributed`` ranks sharing the card over
+gloo, whose decoded
 gradient is held to the single-process spmd path's (the ranks are
 subprocesses of this file: ``python tests/test_torch_gpu.py OUT_DIR``).
 
@@ -116,38 +116,6 @@ def test_cuda_best_reduce_schedule_probes_the_card(cuda_device):
     w = torch.randn(6, device=cuda_device)
     torch.testing.assert_close(autotune.library_reduce(g, w), coded_reduce_torch(g, w),
                                rtol=1e-5, atol=1e-4)
-
-
-@pytest.mark.gpu
-def test_cuda_host_pack_step_equals_device_pack(cuda_device):
-    """``StepEngine(host_pack=True)`` on the card: the flat batch uploaded
-    whole gives the device pack's loss, grad norm and parameters (rtol 1e-6)."""
-    from repro_torch.configs import CodingConfig, TrainConfig, get_config
-    from repro_torch.core.codec import Codec
-    from repro_torch.data.pipeline import SyntheticData
-    from repro_torch.models.lm import build_model
-    from repro_torch.optim.adam import adamw_init
-    from repro_torch.train.engine import StepEngine, TrainerState
-
-    cfg = get_config("smollm-360m").reduced()
-    model = build_model(cfg)
-    codec = Codec.from_config(CodingConfig(scheme="heter_aware", s=1), m=4, rng=1)
-    data = SyntheticData(cfg, k=codec.k, part_mb=2, seq_len=16)
-    res = {}
-    for host_pack in (True, False):
-        eng = StepEngine(model, TrainConfig(), codec, device=cuda_device, host_pack=host_pack)
-        params = model.init(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
-        state = TrainerState(params, adamw_init(params), 0)
-        mets = []
-        for i in range(2):
-            state, met = eng.step(state, data.batch(i), codec.decode_outcome([0, 2, 3]))
-            mets.append(met)
-        res[host_pack] = (mets, state.params)
-    for a, b in zip(res[True][0], res[False][0]):
-        assert a["loss"] == pytest.approx(b["loss"], rel=1e-6)
-        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-6)
-    for k, v in res[True][1].items():
-        torch.testing.assert_close(v, res[False][1][k], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.gpu

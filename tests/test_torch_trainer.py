@@ -310,7 +310,7 @@ def test_main_path_never_loads_jax_or_repro():
         "cfg = get_config('smollm-360m').reduced()\n"
         "model = build_model(cfg)\n"
         "codec = Codec.from_config(CodingConfig(scheme='heter_aware', s=1), m=4, rng=1)\n"
-        "eng = StepEngine(model, TrainConfig(), codec, device='cpu', host_pack=True)\n"
+        "eng = StepEngine(model, TrainConfig(), codec, device='cpu')\n"
         "p = model.init(torch.Generator().manual_seed(0), 'cpu')\n"
         "eng.step(TrainerState(p, adamw_init(p), 0), SyntheticData(cfg, k=codec.k, part_mb=1,\n"
         "         seq_len=8).batch(0), codec.decode_outcome([0, 1, 2]))\n"
