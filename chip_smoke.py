@@ -38,7 +38,9 @@ never imports ``jax`` or the JAX package):
      SSD scan at the training micro-batch, the generate prefill and the
      engine's longest prompt; the SSD backward kernels at a pass of the
      benchmark's mamba2 and granite cells, checked against the plain
-     backward and timed beside it;
+     backward and timed beside it; the SSD epilogue's kernel pair
+     (``ssd_gate_norm``) at the same passes against its bytes bounds,
+     checked against the plain chain and timed beside it;
   5. the main path: ``repro_torch.launch.train`` on smollm-360m at full
      width, spmd backend, heter_aware, s=1, m=4, one faulted worker per
      step, 4 steps, checking losses, the decode metrics and that
@@ -156,8 +158,9 @@ never imports ``jax`` or the JAX package):
      allocated, each block rounded up, is printed beside), its counted
      FLOPs over the measured step (achieved TFLOP/s, share of 989.4) and
      t_compute over the step; (c) mamba2-370m's fused step with remat at
-     B = 2, seq 2048: ``ssd_scan`` twice a layer a step (the checkpoint runs
-     the forward again), one more step profiled (device busy share); (d)
+     B = 2, seq 2048: ``ssd_scan`` and ``ssd_gate_norm`` twice a layer a
+     step each (the checkpoint runs the forward again), their backward
+     kernels once, one more step profiled (device busy share); (d)
      ``repro_torch.launch.kernel_credit`` on JAX's cells (smollm-360m and
      mamba2-370m dp_all and llama3.2-1b on 16×16, jamba-1.5-large-398b on
      2×16×16, train_4k), each a process of its own started at the phase's
@@ -245,6 +248,10 @@ SSD_BATCH = 20  # calls a timed reading of ssd_scan spans
 # mamba2-370m and granite-4.0-h-small cells (P 64, G 1, N 128)
 SSD_BWD_TIMED = ((40, 2048, 32), (20, 1024, 128))
 SSD_BWD_BATCH = 5  # calls a timed reading of ssd_scan_bwd
+# the SSD epilogue's timed shapes (B, S, H): one pass of the benchmark's
+# mamba2-370m and granite-4.0-h-small cells (P 64, one group of state 128)
+GATE_NORM_TIMED = ((40, 2048, 32), (20, 1024, 128))
+GATE_NORM_BATCH = 10  # calls a timed reading of the gate-norm kernels
 # flash_attention against its plain version beyond the JAX test's shapes:
 # (atol, rtol).  In bf16 one spacing of the value (2^-7 of it at most) over
 # a floor for values near zero; in f32 a few f32 spacings of summation order.
@@ -672,6 +679,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels.coded_reduce import coded_reduce
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_train_bwd,
                                                      flash_attention_train_fwd)
+    from repro_torch.kernels.ssd_gate_norm import ssd_gate_norm, ssd_gate_norm_bwd
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     from repro_torch.kernels.wire import coded_decode_int8, coded_encode_int8
 
@@ -680,12 +688,14 @@ def launch_counters() -> dict:
             "flash_attention": flash_attention,
             "flash_attention_train_fwd": flash_attention_train_fwd,
             "flash_attention_train_bwd": flash_attention_train_bwd,
-            "ssd_scan_bwd": ssd_scan_bwd}
+            "ssd_scan_bwd": ssd_scan_bwd, "ssd_gate_norm": ssd_gate_norm,
+            "ssd_gate_norm_bwd": ssd_gate_norm_bwd}
 
 
 # the training kernels' counters where no layer runs them (f32, hd 80; the
-# SSD's backward where no bf16 SSD layer is differentiated)
-NO_TRAIN = {"flash_attention_train_fwd": 0, "flash_attention_train_bwd": 0, "ssd_scan_bwd": 0}
+# SSD's backward and its epilogue's kernels where no bf16 SSD layer runs)
+NO_TRAIN = {"flash_attention_train_fwd": 0, "flash_attention_train_bwd": 0, "ssd_scan_bwd": 0,
+            "ssd_gate_norm": 0, "ssd_gate_norm_bwd": 0}
 
 
 def smollm_train(n_grads: int, n_losses: int) -> dict:
@@ -693,8 +703,8 @@ def smollm_train(n_grads: int, n_losses: int) -> dict:
     64, full remat): each gradient runs the forward twice a layer (the
     forward and remat's recompute) and the backward once; each loss-only
     forward (no grad) the forward once; it has no SSD layer."""
-    return {"flash_attention_train_fwd": (2 * n_grads + n_losses) * SMOLLM_LAYERS,
-            "flash_attention_train_bwd": n_grads * SMOLLM_LAYERS, "ssd_scan_bwd": 0}
+    return {**NO_TRAIN, "flash_attention_train_fwd": (2 * n_grads + n_losses) * SMOLLM_LAYERS,
+            "flash_attention_train_bwd": n_grads * SMOLLM_LAYERS}
 
 
 def _passes(records: list[dict]) -> tuple[int, int]:
@@ -1313,6 +1323,89 @@ def time_ssd_bwd(torch) -> dict:
     return dict(shapes=shapes)
 
 
+def gate_norm_inputs(torch, B, S, H, P, GN, seed):
+    """The SSD epilogue's operands as ``mamba_forward`` holds them: y f32
+    (the scan's output), xs and z strided bf16 views (of the conv's (B, S,
+    d + 2·GN) output and the projection's (B, S, 2·d + 2·GN + H)), D f32,
+    norm bf16, and a gradient of the output, from ``seed``."""
+    d = H * P
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.randn(B, S, 2 * d + 2 * GN + H, device="cuda", generator=gen).to(torch.bfloat16)
+    xbc = torch.randn(B, S, d + 2 * GN, device="cuda", generator=gen).to(torch.bfloat16)
+    y = torch.randn(B, S, H, P, device="cuda", generator=gen)
+    D = torch.rand(H, device="cuda", generator=gen) + 0.5
+    norm = (torch.rand(d, device="cuda", generator=gen) + 0.5).to(torch.bfloat16)
+    go = torch.randn(B, S, d, device="cuda", generator=gen).to(torch.bfloat16)
+    return y, xbc[..., :d].reshape(B, S, H, P), z[..., :d], D, norm, go
+
+
+def time_gate_norm(torch) -> dict:
+    """Phase 4, the SSD epilogue's kernel pair at one pass of each SSD cell
+    of the benchmark (GATE_NORM_TIMED; P 64, state 128, one group) on the
+    strided views ``mamba_forward`` holds.  The forward against the plain
+    chain: within one bf16 spacing, the share bit-equal logged; the
+    backward's five gradients against autograd of the plain chain, relative
+    (Frobenius) difference within 1e-2 (the chain rounds its intermediate
+    gradients to bf16, 2^-9 relative).  Then each kernel's time a call over
+    GATE_NORM_BATCH calls beside its bytes bound (forward: y f32, xs and z
+    bf16 read, out bf16 written, 10 bytes an element; backward: go, y, xs
+    and z read, dy f32, dxs and dz bf16 written, 18 bytes an element, at the
+    HBM rate; dnorm, dD and the blocks' partials not counted), and the plain
+    chain's forward and forward + backward one call at a time."""
+    from repro_torch.kernels import ssd_gate_norm as gn
+
+    P, GN = SSD_FULL["P"], SSD_FULL["G"] * SSD_FULL["N"]
+    shapes = []
+    for B, S_, H in GATE_NORM_TIMED:
+        y, xs, z, D, norm, go = gate_norm_inputs(torch, B, S_, H, P, GN, 15)
+        ops_in = (y, xs, z, D, norm)
+        out = gn.ssd_gate_norm(*ops_in)
+        want = gn.ssd_gate_norm_torch(*ops_in)
+        e = torch.floor(torch.log2(want.float().abs().clamp_min(2.0**-126)))
+        fwd_ok = bool(((out.float() - want.float()).abs() <= torch.exp2(e - 7)).all())
+        same = float((out == want).float().mean())
+        del out, want, e
+        got = gn.ssd_gate_norm_bwd(go, *ops_in)
+        leaves = [t.clone().requires_grad_(True) for t in ops_in]
+        chain = torch.autograd.grad(gn.ssd_gate_norm_torch(*leaves), leaves, go)
+        rel = {name: float((k.float() - c.float()).norm() / c.float().norm())
+               for name, k, c in zip(("dy", "dxs", "dz", "dD", "dnorm"), got, chain)}
+        ok = fwd_ok and max(rel.values()) <= 1e-2 and all(bool(torch.isfinite(k).all())
+                                                          for k in got)
+        del got, chain
+        torch.cuda.empty_cache()
+        fwd_ms = time_cuda(lambda: gn.ssd_gate_norm(*ops_in), reps=5, warmup=1,
+                           batch=GATE_NORM_BATCH)
+        bwd_ms = time_cuda(lambda: gn.ssd_gate_norm_bwd(go, *ops_in), reps=5, warmup=1,
+                           batch=GATE_NORM_BATCH)
+        with torch.no_grad():
+            plain_fwd_ms = time_cuda(lambda: gn.ssd_gate_norm_torch(*ops_in), reps=3, warmup=1)
+        plain_pair_ms = time_cuda(
+            lambda: torch.autograd.grad(gn.ssd_gate_norm_torch(*leaves), leaves, go),
+            reps=3, warmup=1)
+        n = B * S_ * H * P
+        fwd_bound = 10 * n / HBM_BYTES_PER_S * 1e3
+        bwd_bound = 18 * n / HBM_BYTES_PER_S * 1e3
+        shapes.append(dict(B=B, S=S_, H=H, d=H * P, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                           fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound,
+                           plain_fwd_ms=plain_fwd_ms, plain_pair_ms=plain_pair_ms,
+                           bit_equal_share=same, rel_to_chain=rel))
+        log(f"time ssd_gate_norm B={B} S={S_} d={H * P} (H={H} P={P}): forward {fwd_ms:.4f} ms "
+            f"a call ({GATE_NORM_BATCH} calls a reading; bound {fwd_bound:.4f} ms by bytes over "
+            f"{10 * n / 1e9:.3f} GB, {fwd_bound / fwd_ms:.1%} of it), backward {bwd_ms:.4f} ms "
+            f"(bound {bwd_bound:.4f} ms over {18 * n / 1e9:.3f} GB, {bwd_bound / bwd_ms:.1%} of "
+            f"it); plain chain forward {plain_fwd_ms:.3f} ms, forward + backward "
+            f"{plain_pair_ms:.3f} ms ({plain_pair_ms / (fwd_ms + bwd_ms):.1f}x the pair); "
+            f"forward within one bf16 spacing of the chain {fwd_ok}, {same:.4%} bit-equal; "
+            "gradients' relative difference to the chain's " + ", ".join(
+                f"{k} {v:.2e}" for k, v in rel.items()) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ssd_gate_norm at B={B} S={S_} H={H} disagrees with the chain")
+        del y, xs, z, D, norm, go, leaves, ops_in
+        torch.cuda.empty_cache()
+    return dict(shapes=shapes)
+
+
 def mamba_kernel_check(torch) -> dict:
     """Phase 6 for mamba2-370m at full width in f32, TF32 off: one
     micro-batch of the main path's shape (2 x 512, two chunks) through the
@@ -1810,7 +1903,8 @@ def serve_path(torch, arch: str, gen: dict = GEN, engine: bool = True) -> dict:
     cfg, model, params, info = full_model(torch, arch)
     name = f"{arch} ({info['cut']})" if info["cut"] else arch
     per_prefill = {"flash_attention": sum(spec.mixer == "attn" for spec in model.plan),
-                   "ssd_scan": sum(spec.mixer == "mamba" for spec in model.plan)}
+                   "ssd_scan": sum(spec.mixer == "mamba" for spec in model.plan),
+                   "ssd_gate_norm": sum(spec.mixer == "mamba" for spec in model.plan)}
     counters = launch_counters()
     server = LMServer(model)
     calls = {"prefill": [], "decode": [], "prefill_launches": 0, "decode_launches": 0}
@@ -2177,7 +2271,7 @@ def jamba_path(torch, plain_launches) -> dict:
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
     want = {name: 0 for name in counters}
-    want.update(ssd_scan=mamba_layers, flash_attention=attn_layers)
+    want.update(ssd_scan=mamba_layers, ssd_gate_norm=mamba_layers, flash_attention=attn_layers)
     in_range = bool(((toks >= 0) & (toks < cfg.vocab)).all())
     ok = launches == want and calls["decode_launches"] == 0 and in_range
     log(f"family {JAMBA} (reduced config, bf16: {cfg.n_layers} layers, {mamba_layers} mamba, "
@@ -2766,13 +2860,19 @@ def large_model_path(torch) -> dict:
         # a layer a step (forward, and the checkpoint's recompute)
         mr = _fused_run(torch, MAMBA, MAMBA_REMAT["B"], MAMBA_REMAT["S"], MAMBA_REMAT["steps"],
                         profile=True)
+        # and the epilogue's kernels as often, its backward once a layer a step
         want = MAMBA_REMAT["steps"] * 2 * MAMBA_LAYERS
-        if mr["launches"]["ssd_scan"] != want:
-            raise AssertionError(f"mamba2 remat: ssd_scan {mr['launches']['ssd_scan']} launches, "
-                                 f"expected {want}")
-        log(f"phase 12 (c) mamba2 fused step with remat: ssd_scan {want} launches in "
-            f"{MAMBA_REMAT['steps']} steps (2 x {MAMBA_LAYERS} a step), peak "
-            f"{mr['peak_gib']:.2f} GiB, median step {mr['median_s']:.4f} s")
+        want_bwd = MAMBA_REMAT["steps"] * MAMBA_LAYERS
+        got = {k: mr["launches"][k] for k in ("ssd_scan", "ssd_gate_norm", "ssd_scan_bwd",
+                                              "ssd_gate_norm_bwd")}
+        if got != {"ssd_scan": want, "ssd_gate_norm": want, "ssd_scan_bwd": want_bwd,
+                   "ssd_gate_norm_bwd": want_bwd}:
+            raise AssertionError(f"mamba2 remat: launches {got}, expected {want} forward and "
+                                 f"{want_bwd} backward of each")
+        log(f"phase 12 (c) mamba2 fused step with remat: ssd_scan and ssd_gate_norm {want} "
+            f"launches each in {MAMBA_REMAT['steps']} steps (2 x {MAMBA_LAYERS} a step), their "
+            f"backward kernels {want_bwd} each, peak {mr['peak_gib']:.2f} GiB, median step "
+            f"{mr['median_s']:.4f} s")
         out["c"] = mr
     finally:
         # (d) the dry-run rows and the kernel credit of JAX's cells
@@ -3030,6 +3130,7 @@ def main() -> int:
     wdec = time_decode(torch, M, D_FULL)
     tssd = time_ssd(torch)
     tssd_bwd = time_ssd_bwd(torch)
+    tgate = time_gate_norm(torch)
     tflash = time_flash(torch)
     auto = autotune.wire_kernel_default("cuda")
     probe = next(v for k, v in autotune.PROBE_US.items() if k[0] == "wire_kernel")
@@ -3053,7 +3154,9 @@ def main() -> int:
     mamba_launches = lambda n: {  # noqa: E731
         "coded_reduce": n * (M + 1), "coded_encode_int8": 0, "coded_decode_int8": 0,
         "ssd_scan": n * passes * MAMBA_LAYERS, "flash_attention": 0, **NO_TRAIN,
-        "ssd_scan_bwd": n * M * n_slots * MAMBA_LAYERS}
+        "ssd_scan_bwd": n * M * n_slots * MAMBA_LAYERS,
+        "ssd_gate_norm": n * passes * MAMBA_LAYERS,
+        "ssd_gate_norm_bwd": n * M * n_slots * MAMBA_LAYERS}
     run = main_path(torch, "spmd", SLICE_ARGS, smollm_launches)
     wire_run = main_path(torch, "spmd --compress", WIRE_ARGS, wire_launches,
                          on_step=check_err_after_step(torch))
@@ -3195,6 +3298,18 @@ def main() -> int:
         "backward": dict(tssd_bwd, launches=mamba_run["launches"]["ssd_scan_bwd"],
                          route="wgmma, five launches a call (chunk, state, dx, dB/dC, "
                                "reduce passes), bf16 B/C; f32 B/C the plain backward"),
+    }, {
+        "name": "ssd_gate_norm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_gate_norm.cu",
+        "replaces": None,
+        "replaces_none": "the JAX package leaves the D skip and the gated RMSNorm to XLA",
+        "launches_per_step": mamba_run["launches"]["ssd_gate_norm"] / mamba_run["steps"],
+        "backward_launches_per_step": (mamba_run["launches"]["ssd_gate_norm_bwd"]
+                                       / mamba_run["steps"]),
+        "launches_serving": {k: serve[MAMBA][k]["launches"]["ssd_gate_norm"]
+                             for k in ("generate", "engine")},
+        "shapes": tgate["shapes"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -18,7 +18,10 @@ CUPTI kernels of the window's steps it reports:
   - idle seconds by the innermost span open where each gap starts, over
     every span and over the host spans alone, the share the first puts on
     ``device.*`` names, and for the gaps that start inside a region how
-    far they start from its end.
+    far they start from its end;
+  - the kernels with the most device time a step over the whole window
+    (``top_kernels``, seconds a step by name), and the calls a step of the
+    port's counted kernel wrappers (``launches_a_step``).
 
     python scripts/device_regions.py --workload smollm-360m.heter.s2048 \\
         --seed 7 --seconds 10 [--out regions.json]
@@ -145,6 +148,18 @@ def _quartiles(xs: list[float]) -> list[float] | None:
     return [1e6 * q for q in statistics.quantiles(xs, n=4)]
 
 
+def _counted() -> dict:
+    """The port's kernel wrappers that count their calls in ``launches``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_gate_norm as gn
+    from repro_torch.kernels import ssd_scan as ssd
+
+    return {"ssd_scan": ssd.ssd_scan, "ssd_scan_bwd": ssd.ssd_scan_bwd,
+            "ssd_gate_norm": gn.ssd_gate_norm, "ssd_gate_norm_bwd": gn.ssd_gate_norm_bwd,
+            "flash_attention_train_fwd": fa.flash_attention_train_fwd,
+            "flash_attention_train_bwd": fa.flash_attention_train_bwd}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -158,6 +173,8 @@ def main(argv=None) -> int:
     n_check = int(bench.check(cell["name"])["check_steps"])
     dev = torch.device("cuda")
     prog, state, data, _, _ = run.setup(bench, cfg, traffic, args.seed, dev, True, n_check)
+    counted = _counted()
+    before = {name: fn.launches for name, fn in counted.items()}
     trace = devtrace.DeviceTrace()
     trace.start()
     torch.cuda.synchronize(dev)
@@ -169,9 +186,14 @@ def main(argv=None) -> int:
     torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
     trace.stop()
+    steps = step - n_check
+    top = sorted(trace.by_name(t0, t1).items(), key=lambda kv: -kv[1])[:25]
     out = {"workload": args.workload, "seed": args.seed,
            "device": torch.cuda.get_device_name(dev), "power_limit": run.power_limit(),
-           **breakdown(prog.spans(), trace, t0, t1, set(range(n_check, step)))}
+           **breakdown(prog.spans(), trace, t0, t1, set(range(n_check, step))),
+           "top_kernels": [[name[:100], s / steps] for name, s in top],
+           "launches_a_step": {name: (fn.launches - before[name]) / steps
+                               for name, fn in counted.items()}}
     prog.close()
     text = json.dumps(out, indent=1)
     if args.out:

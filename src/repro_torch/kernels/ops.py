@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention_torch, flash_attention_train_torch
 from repro_torch.kernels.flash_attention import flash_attention_train as _flash_train_kernel
+from repro_torch.kernels.ssd_gate_norm import MAX_D, SSDGateNormFn, ssd_gate_norm_torch
 from repro_torch.kernels.ssd_scan import (
     SSDScanFn, ssd_scan_bwd, ssd_scan_torch, ssd_scan_with_states,
 )
@@ -132,3 +133,28 @@ def ssd_backward_impl(x: torch.Tensor, Bm: torch.Tensor, impl: str | None = None
     CPU, f32 B and C)."""
     cuda = _resolve(impl, x) == "cuda"
     return "kernel" if cuda and Bm.dtype == torch.bfloat16 else "plain"
+
+
+def ssd_gate_norm(
+    y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor, D: torch.Tensor, norm: torch.Tensor, *,
+    eps: float = 1e-5, impl: str | None = None,
+) -> torch.Tensor:
+    """The mamba2 block's epilogue after the scan, differentiable either
+    way: y (B,S,H,P) f32, xs (B,S,H,P) and z (B,S,d) -> bf16(norm(bf16(y +
+    D·xs) · silu(z))) (B,S,d) in z's dtype.  The kernels through
+    ``SSDGateNormFn``, the plain version (the model's chain) by autograd:
+    :func:`ssd_gate_norm_impl` says which a call gets."""
+    if ssd_gate_norm_impl(xs, impl) == "plain":
+        return ssd_gate_norm_torch(y, xs, z, D, norm, eps)
+    return SSDGateNormFn.apply(y, xs, z, D, norm, eps)
+
+
+def ssd_gate_norm_impl(xs: torch.Tensor, impl: str | None = None) -> str:
+    """What runs :func:`ssd_gate_norm` for this xs and ``impl``: "kernel",
+    the hand-written forward and backward, for a plain (not DTensor) bf16
+    xs on the card whose rows fit the kernels (d_inner up to ``MAX_D``), or
+    "plain", the model's chain (the CPU, f32, DTensors, ``impl="torch"``)."""
+    cuda = _resolve(impl, xs) == "cuda"
+    kernel = (cuda and not isinstance(xs, DTensor) and xs.dtype == torch.bfloat16
+              and xs.dim() == 4 and xs.shape[-2] * xs.shape[-1] <= MAX_D)
+    return "kernel" if kernel else "plain"

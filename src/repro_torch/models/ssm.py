@@ -12,7 +12,10 @@ algorithm for a CPU tensor.  The chunked math lives once, in
 that code.  The JAX module's sequential oracle ``ssd_sequential`` is
 ``kernels.ref.ssd_ref`` here, beside the other oracles.  ``softplus`` is
 ``jax.nn.softplus``'s own definition, ``logaddexp(x, 0)`` (``F.softplus``
-returns x itself above 20, which differs from it by under 2e-9).
+returns x itself above 20, which differs from it by under 2e-9).  The
+epilogue after the scan (the D skip, the SiLU gate, the gated RMSNorm) is
+``kernels.ops.ssd_gate_norm``: one hand-written kernel pair for bf16 on the
+card, the model's chain everywhere else.
 
 Serving: :func:`mamba_forward` with ``return_cache`` also returns the
 decode cache ``{"h": the final SSD state (B,H,P,N) f32, "conv": the last
@@ -121,7 +124,8 @@ def mamba_forward(
     cache)``, the cache ``{"h", "conv"}`` when ``return_cache``, else None.
     ``impl`` picks the SSD scan (``kernels.ops``): None by the tensors'
     device.  The scan's backward, "kernel" or "plain", is set on ``region``
-    (the layer's ``device.mixer`` span) as ``bwd_impl``."""
+    (the layer's ``device.mixer`` span) as ``bwd_impl``, and what runs the
+    epilogue after the scan (``ops.ssd_gate_norm``) as ``norm_impl``."""
     B, S, _ = x.shape
     P = d_inner // n_heads
     GN = n_groups * d_state
@@ -146,11 +150,9 @@ def mamba_forward(
     region.set(bwd_impl=ops.ssd_backward_impl(xdt, Bm, impl))
     y, h = on_local_rows(partial(ops.ssd_scan, chunk=chunk, impl=impl), xdt.contiguous(),
                          dA.contiguous(), Bm.contiguous(), Cm.contiguous(), n_out=2)
-    y = y[:, :S]
-    y = y + params["D"][None, None, :, None] * xs.float()
-    y = y.reshape(B, S, d_inner).to(x.dtype)
-    # gated RMSNorm (mamba2): norm(y * silu(z))
-    y = rms_norm(y * F.silu(z), params["norm"], 1e-5)
+    # the D skip and the gated RMSNorm (mamba2): norm(bf16(y + D x) * silu(z))
+    region.set(norm_impl=ops.ssd_gate_norm_impl(xs, impl))
+    y = ops.ssd_gate_norm(y[:, :S], xs, z, params["D"], params["norm"], impl=impl)
     out = y @ params["out_proj"]
     cache = None
     if return_cache:

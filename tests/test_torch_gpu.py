@@ -1392,3 +1392,184 @@ def test_cuda_ssd_scan_granite_128_heads_matches_plain(cuda_device):
     del py, ph
     print(f"\ngranite ssd_scan ms: kernel {_cuda_ms(lambda: ssd_scan(x, dA, Bm, Cm, 256)):.4f}, "
           f"plain {_cuda_ms(lambda: ssd_scan_torch(x, dA, Bm, Cm, 256), n=2):.3f}")
+
+
+# ---------------------------------------------------------------------------
+# the SSD block's epilogue: the gate-norm kernel pair
+# ---------------------------------------------------------------------------
+
+
+def _gate_norm_inputs(B, S, H, P, GN, dev, seed):
+    """y (f32), and xs and z as the strided views ``mamba_forward`` holds
+    (xs a slice of the conv's (B, S, d + 2·GN) output, z of the projection's
+    (B, S, 2·d + 2·GN + H)), D, norm (bf16) and a gradient of the output,
+    from ``seed``, on the card."""
+    d = H * P
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn(B, S, 2 * d + 2 * GN + H, device=dev, generator=gen).to(torch.bfloat16)
+    xbc = torch.randn(B, S, d + 2 * GN, device=dev, generator=gen).to(torch.bfloat16)
+    y = torch.randn(B, S, H, P, device=dev, generator=gen)
+    D = torch.rand(H, device=dev, generator=gen) + 0.5
+    norm = (torch.rand(d, device=dev, generator=gen) + 0.5).to(torch.bfloat16)
+    go = torch.randn(B, S, d, device=dev, generator=gen).to(torch.bfloat16)
+    return y, xbc[..., :d].reshape(B, S, H, P), z[..., :d], D, norm, go
+
+
+def _gate_norm_chain64(y, xs, z, D, norm, eps=1e-5):
+    """The epilogue in f64 with no rounding: the gradients' reference."""
+    B, S, H, P = xs.shape
+    g = (y + D[None, None, :, None] * xs).reshape(B, S, H * P) * torch.nn.functional.silu(z)
+    return g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps) * norm
+
+
+def _bf16_ulp(v):
+    """One bf16 spacing at each value of ``v`` (the smallest normal's below it)."""
+    e = torch.floor(torch.log2(v.float().abs().clamp_min(2.0**-126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,GN", [
+    (3, 333, 32, 64, 128),    # mamba2's widths; 999 rows, two a block: a ragged last block
+    (1, 257, 128, 64, 128),   # granite's, 512 threads a row
+    (1, 129, 256, 64, 128),   # jamba's, 1024 threads a row
+    (2, 37, 4, 64, 16),       # the reduced configs: z's rows 8-byte aligned, 8-byte loads
+    (3, 41, 16, 24, 16),      # P 24
+    (2, 19, 3, 5, 4),         # d 15: one element a load
+], ids=["mamba2", "granite", "jamba", "reduced", "P24", "d15"])
+def test_cuda_ssd_gate_norm_matches_the_chain(cuda_device, B, S, H, P, GN):
+    """The kernel pair on the strided views against the plain chain on the
+    card.  Forward: within one bf16 spacing of the chain's output, and
+    bit-equal on at least 99 % of it (the row's sum of squares in another
+    order moves r by an ulp).  Backward: dy, dxs, dz, dD and dnorm in their
+    inputs' dtypes, each with a relative (Frobenius) error against f64
+    autograd of the unrounded chain at most 1.1 x the bf16 chain's own
+    + 1e-5, as the training flash kernels.  One counted launch each."""
+    from repro_torch.kernels import ssd_gate_norm as gn
+
+    y, xs, z, D, norm, go = _gate_norm_inputs(B, S, H, P, GN, cuda_device, B * S + H)
+    before = (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches)
+    out = gn.ssd_gate_norm(y, xs, z, D, norm)
+    got = gn.ssd_gate_norm_bwd(go, y, xs, z, D, norm)
+    torch.cuda.synchronize()
+    assert (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = gn.ssd_gate_norm_torch(y, xs, z, D, norm)
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape and out.is_contiguous()
+    diff = (out.float() - want.float()).abs()
+    assert bool((diff <= _bf16_ulp(want)).all()), float(diff.max())
+    same = float((out == want).float().mean())
+    assert same >= 0.99, f"only {same:.4%} of the output bit-equal to the chain"
+    leaves = [t.clone().requires_grad_(True) for t in (y, xs, z, D, norm)]
+    chain = torch.autograd.grad(gn.ssd_gate_norm_torch(*leaves), leaves, go)
+    wide = [t.double().requires_grad_(True) for t in (y, xs, z, D, norm)]
+    ref = torch.autograd.grad(_gate_norm_chain64(*wide), wide, go.double())
+    errs = {}
+    for name, k, c, r, t in zip(("dy", "dxs", "dz", "dD", "dnorm"), got, chain, ref,
+                                (y, xs, z, D, norm)):
+        assert k.dtype == t.dtype and k.shape == t.shape and torch.isfinite(k).all(), name
+        ek = float((k.double() - r).norm() / r.norm())
+        ec = float((c.double() - r).norm() / r.norm())
+        assert ek <= 1.1 * ec + 1e-5, f"{name}: kernels {ek:.3e} from f64, plain chain {ec:.3e}"
+        errs[name] = (ek, ec)
+    print(f"\ngate_norm {B}x{S} H={H} P={P}: {same:.4%} of out bit-equal; relative error "
+          "kernels / chain " + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in errs.items()))
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_gate_norm_is_deterministic(cuda_device):
+    """Two calls of each kernel at mamba2's widths give the same bits in
+    every output (dnorm and dD summed without atomics)."""
+    from repro_torch.kernels import ssd_gate_norm as gn
+
+    y, xs, z, D, norm, go = _gate_norm_inputs(4, 512, 32, 64, 128, cuda_device, 5)
+    assert torch.equal(gn.ssd_gate_norm(y, xs, z, D, norm), gn.ssd_gate_norm(y, xs, z, D, norm))
+    for a, b in zip(gn.ssd_gate_norm_bwd(go, y, xs, z, D, norm),
+                    gn.ssd_gate_norm_bwd(go, y, xs, z, D, norm)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_gate_norm_route_and_autograd(cuda_device):
+    """``ops.ssd_gate_norm`` on the card: bf16 takes the kernels ("kernel",
+    one forward and one backward launch under autograd, gradients equal to
+    the kernel backward's); f32 and ``impl="torch"`` take the chain
+    ("plain", no launch)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_gate_norm as gn
+
+    y, xs, z, D, norm, go = _gate_norm_inputs(2, 64, 8, 64, 16, cuda_device, 6)
+    assert ops.ssd_gate_norm_impl(xs) == "kernel"
+    assert ops.ssd_gate_norm_impl(xs, impl="torch") == "plain"
+    assert ops.ssd_gate_norm_impl(xs.float()) == "plain"
+    leaves = [t.clone().requires_grad_(True) for t in (y, xs, z, D, norm)]
+    before = (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches)
+    grads = torch.autograd.grad(ops.ssd_gate_norm(*leaves), leaves, go)
+    assert (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(grads, gn.ssd_gate_norm_bwd(go, y, xs, z, D, norm)):
+        assert torch.equal(a, b)
+    f32 = [t.float() if t.dtype == torch.bfloat16 else t for t in (y, xs, z, D, norm)]
+    before = (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches)
+    out = ops.ssd_gate_norm(*f32)
+    assert torch.equal(out, gn.ssd_gate_norm_torch(*f32))
+    assert torch.equal(ops.ssd_gate_norm(y, xs, z, D, norm, impl="torch"),
+                       gn.ssd_gate_norm_torch(y, xs, z, D, norm))
+    assert (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches) == before
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_gate_norm_refuses_before_any_launch(cuda_device):
+    """f32 xs, a norm of the wrong width, columns that are not contiguous,
+    a gradient of the wrong dtype, CPU tensors: each raises before any
+    launch."""
+    from repro_torch.kernels import ssd_gate_norm as gn
+
+    y, xs, z, D, norm, go = _gate_norm_inputs(1, 16, 4, 16, 8, cuda_device, 7)
+    before = (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gn.ssd_gate_norm(y, xs.float(), z, D, norm)
+    with pytest.raises(ValueError, match="disagree"):
+        gn.ssd_gate_norm(y, xs, z, D, norm[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.ssd_gate_norm(y, xs.transpose(2, 3).contiguous().transpose(2, 3), z, D, norm)
+    with pytest.raises(ValueError, match="go"):
+        gn.ssd_gate_norm_bwd(go.float(), y, xs, z, D, norm)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.ssd_gate_norm(y.cpu(), xs.cpu(), z.cpu(), D.cpu(), norm.cpu())
+    assert (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches) == before
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_gate_norm_in_a_traced_lm_step(cuda_device):
+    """A bf16 reduced mamba2 under full remat, two traced fused steps on the
+    card: every SSD layer's spans say ``norm_impl="kernel"``, the forward
+    kernel runs once a ``fwd`` and ``recompute`` pass and the backward
+    once a ``bwd`` pass, and no step's loss is non-finite."""
+    import dataclasses
+
+    from repro_torch.configs import CodingConfig, TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticData
+    from repro_torch.kernels import ssd_gate_norm as gn
+    from repro_torch.models.lm import build_model
+    from repro_torch.obs import Tracer
+    from repro_torch.train.trainer import CodedTrainer
+
+    cfg = dataclasses.replace(get_config("mamba2-370m").reduced(), remat="full",
+                              dtype="bfloat16")
+    tracer = Tracer()
+    tr = CodedTrainer(build_model(cfg), CodingConfig(scheme="heter_aware", s=1),
+                      TrainConfig(), m=4, part_mb=2, device=cuda_device, trace=tracer)
+    data = SyntheticData(cfg, k=tr.k, part_mb=2, seq_len=64, seed=0)
+    state = tr.init_state(0)
+    before = (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches)
+    for i in range(2):
+        state, met = tr.step(state, data.batch(i))
+        assert np.isfinite(met["loss"])
+    spans = [r for r in tracer.records("span")
+             if r["name"] == "device.mixer" and r["args"]["kind"] == "ssd"]
+    passes = {p: sum(r["args"]["pass"] == p for r in spans) for p in ("fwd", "recompute", "bwd")}
+    assert {r["args"]["norm_impl"] for r in spans} == {"kernel"}
+    assert passes["bwd"] == 2 * cfg.n_layers
+    assert (gn.ssd_gate_norm.launches - before[0], gn.ssd_gate_norm_bwd.launches - before[1]) == (
+        passes["fwd"] + passes["recompute"], passes["bwd"])

@@ -130,6 +130,7 @@ def test_regions_carry_their_shape_and_parent(traced):
             assert (a["H"], a["P"], a["G"], a["N"], a["chunk"], a["bc_bytes"]) == (
                 cfg.ssm_heads, cfg.ssm_d_inner // cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state,
                 cfg.ssm_chunk, 4)
+            assert (a["bwd_impl"], a["norm_impl"]) == ("plain", "plain")  # the CPU's routes
         elif r["name"] == "device.mlp":
             assert (a["kind"], a["d_model"], a["d_ff"]) == ("dense", cfg.d_model, cfg.d_ff)
         else:

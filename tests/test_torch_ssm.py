@@ -25,10 +25,12 @@ from repro.models import ssm as jssm
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd_gate_norm as gn
 from repro_torch.kernels.ssd_scan import (
     SSDScanFn, ssd_scan, ssd_scan_bwd_torch, ssd_scan_torch,
 )
 from repro_torch.models import ssm
+from repro_torch.models.layers import rms_norm
 
 torch.set_num_threads(2)
 
@@ -518,3 +520,187 @@ def test_tensor_core_backward_precision_holds_granite_heads(with_gh):
                           .astype(np.float32)) if with_gh else None
     got = _emulate_tensor_core_ssd_bwd(x, dA, Bm, Cm, dy, gh, "split")
     assert _over_the_hold(got, x, dA, Bm, Cm, dy, gh, 384) == []
+
+
+# ---------------------------------------------------------------------------
+# the epilogue after the scan: ops.ssd_gate_norm
+# ---------------------------------------------------------------------------
+
+
+def _mamba_forward_before(params, x, *, d_inner, n_heads, d_state, n_groups, chunk):
+    """``mamba_forward`` (training's form) as it was before
+    ``ops.ssd_gate_norm``: the D skip and the gated RMSNorm as the model's
+    chain, inline."""
+    B, S, _ = x.shape
+    P, GN = d_inner // n_heads, n_groups * d_state
+    z, xBC, dt = torch.split(x @ params["in_proj"], [d_inner, d_inner + 2 * GN, n_heads], dim=-1)
+    xBC, _ = ssm._causal_conv(xBC, params["conv_w"], params["conv_b"], None)
+    xs, Bm, Cm = torch.split(torch.nn.functional.silu(xBC), [d_inner, GN, GN], dim=-1)
+    xs = xs.reshape(B, S, n_heads, P)
+    Bm, Cm = (t.reshape(B, S, n_groups, d_state) for t in (Bm, Cm))
+    dt = ssm._softplus(dt.float() + params["dt_bias"])
+    xdt, dA = xs * dt[..., None], dt * -torch.exp(params["A_log"])
+    pad = (-S) % chunk
+    if pad:
+        xdt, dA, Bm, Cm = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                           for t in (xdt, dA, Bm, Cm))
+    y, _ = ops.ssd_scan(xdt.contiguous(), dA.contiguous(), Bm.contiguous(), Cm.contiguous(),
+                        chunk=chunk)
+    y = y[:, :S] + params["D"][None, None, :, None] * xs.float()
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = rms_norm(y * torch.nn.functional.silu(z), params["norm"], 1e-5)
+    return y @ params["out_proj"]
+
+
+@pytest.mark.parametrize("S", [16, 13], ids=["chunk-multiple", "padded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mamba_forward_on_cpu_is_bit_equal_to_the_chain_before(dtype, S):
+    """On the CPU ``ops.ssd_gate_norm`` runs the model's chain: the reduced
+    block's output and every parameter's gradient equal, bit for bit, the
+    block with the chain written inline, in f32 and in bf16."""
+    cfg = get_config("mamba2-370m").reduced()
+    kw = dict(d_inner=cfg.ssm_d_inner, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+              n_groups=cfg.ssm_groups)
+    stacked = ssm.init_mamba(torch.Generator().manual_seed(4), 1, cfg.d_model, dtype=dtype,
+                             device="cpu", **kw)
+    x = torch.from_numpy(np.random.default_rng(S).normal(size=(2, S, cfg.d_model))
+                         .astype(np.float32)).to(dtype)
+    w = torch.from_numpy(np.random.default_rng(S + 1).normal(size=(2, S, cfg.d_model))
+                         .astype(np.float32))
+    results = []
+    for fn in (ssm.mamba_forward, _mamba_forward_before):
+        leaves = {k: v[0].clone().requires_grad_(True) for k, v in stacked.items()}
+        out = fn(leaves, x, chunk=cfg.ssm_chunk, **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        grads = torch.autograd.grad((out.float() * w).sum(), list(leaves.values()))
+        results.append((out.detach(), grads))
+    (o1, g1), (o2, g2) = results
+    assert o1.dtype == dtype and torch.equal(o1, o2)
+    for name, a, b in zip(stacked, g1, g2):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def test_ssd_gate_norm_route_on_cpu_is_plain():
+    """On the CPU, for f32 and bf16 activations and with ``impl="torch"``,
+    the epilogue is the model's chain; ``impl="cuda"`` on CPU tensors
+    raises; the kernel wrappers raise on CPU tensors before any launch."""
+    for dtype in (torch.float32, torch.bfloat16):
+        y, xs, z, D, norm, go = _gate_norm_inputs(2, 8, 4, 16, 0, dtype)
+        assert ops.ssd_gate_norm_impl(xs) == "plain"
+        assert ops.ssd_gate_norm_impl(xs, impl="torch") == "plain"
+        out = ops.ssd_gate_norm(y, xs, z, D, norm)
+        assert out.dtype == dtype and torch.equal(out, gn.ssd_gate_norm_torch(y, xs, z, D, norm))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_gate_norm_impl(xs, impl="cuda")
+    before = (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.ssd_gate_norm(y, xs, z, D, norm)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.ssd_gate_norm_bwd(go, y, xs, z, D, norm)
+    assert (gn.ssd_gate_norm.launches, gn.ssd_gate_norm_bwd.launches) == before
+
+
+def _gate_norm_inputs(B, S, H, P, seed, dtype=torch.bfloat16, GN=16):
+    """y (f32), and xs and z as the strided views ``mamba_forward`` holds
+    (slices of a (B, S, C) projection and of the conv's output), D, norm
+    and a gradient of the output, from ``seed``."""
+    d = H * P
+    r = np.random.default_rng(seed)
+
+    def draw(*shape, lo=None):
+        a = r.normal(size=shape) if lo is None else r.uniform(lo, 2 * lo, size=shape)
+        return torch.from_numpy(a.astype(np.float32))
+
+    z = draw(B, S, 2 * d + 2 * GN + H).to(dtype)[..., :d]
+    xs = draw(B, S, d + 2 * GN).to(dtype)[..., :d].reshape(B, S, H, P)
+    return (draw(B, S, H, P), xs, z, draw(H, lo=0.5), draw(d, lo=0.5).to(dtype),
+            draw(B, S, d).to(dtype))
+
+
+def _chain64(y, xs, z, D, norm, eps=1e-5):
+    """The epilogue in f64 with no rounding: the gradients' reference."""
+    B, S, H, P = xs.shape
+    g = (y + D[None, None, :, None] * xs).reshape(B, S, H * P) * torch.nn.functional.silu(z)
+    return g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps) * norm
+
+
+def test_gate_norm_closed_form_backward_is_the_chain_derivative_in_f64():
+    """The kernels' closed-form backward, run on f64 operands (no rounding
+    anywhere), equals f64 autograd of the chain to 1e-9 relative: the
+    formula is the derivative."""
+    ins = [t.double() for t in _gate_norm_inputs(2, 6, 4, 16, 1)]
+    leaves = [t.clone().requires_grad_(True) for t in ins[:5]]
+    want = torch.autograd.grad(_chain64(*leaves), leaves, ins[5])
+    got = gn.ssd_gate_norm_bwd_torch(ins[5], *ins[:5])
+    for name, a, b in zip(("dy", "dxs", "dz", "dD", "dnorm"), got, want):
+        assert a.dtype == torch.float64 and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))
+
+
+def _rel(a, ref):
+    """Relative Frobenius error of ``a`` against ``ref``."""
+    return float((a.double() - ref).norm() / ref.norm())
+
+
+@pytest.mark.parametrize("B,S,H,P,seed", [(2, 16, 8, 64, 2), (1, 37, 8, 16, 3),
+                                          (3, 5, 16, 24, 4)], ids=["P64", "ragged-S", "P24"])
+def test_gate_norm_closed_form_backward_holds_to_f64(B, S, H, P, seed):
+    """The kernels' closed-form backward (bf16 xs, z, norm and out's
+    gradient, f32 y and D, strided xs and z) against f64 autograd of the
+    unrounded chain: each gradient in its input's dtype, and its relative
+    (Frobenius) error at most 1.1 x the bf16 chain's own (its autograd)
+    + 1e-5, the card tests' rule: both carry the forward's roundings, and
+    the chain also rounds its intermediate gradients to bf16."""
+    ins = _gate_norm_inputs(B, S, H, P, seed)
+    go = ins[5]
+    got = gn.ssd_gate_norm_bwd_torch(go, *ins[:5])
+    leaves = [t.clone().requires_grad_(True) for t in ins[:5]]
+    chain = torch.autograd.grad(gn.ssd_gate_norm_torch(*leaves), leaves, go)
+    wide = [t.double().requires_grad_(True) for t in ins[:5]]
+    ref = torch.autograd.grad(_chain64(*wide), wide, go.double())
+    for name, k, c, r, t in zip(("dy", "dxs", "dz", "dD", "dnorm"), got, chain, ref, ins):
+        assert k.dtype == c.dtype == t.dtype and k.shape == t.shape, name
+        err_k, err_c = _rel(k, r), _rel(c, r)
+        assert err_k <= 1.1 * err_c + 1e-5, f"{name}: closed form {err_k:.3e}, chain {err_c:.3e}"
+
+
+def test_gate_norm_launch_shape_adapts_to_the_row():
+    """The launch shape from the row width alone: the three models' widths
+    at 16-byte loads, at most 16 elements a thread, and every shape the
+    wrapper can ask for is one that csrc/ssd_gate_norm.cu instantiates."""
+    import re
+    from pathlib import Path
+
+    assert gn.launch_shape(2048, 8) == (128, 2, 2)     # mamba2
+    assert gn.launch_shape(8192, 8) == (512, 1, 2)     # granite
+    assert gn.launch_shape(16384, 8) == (1024, 1, 2)   # jamba
+    assert gn.launch_shape(256, 4) == (32, 8, 2)       # the reduced configs
+    assert gn.launch_shape(gn.MAX_D + 8, 8) is None
+    src = (Path(gn.__file__).parent / "csrc" / "ssd_gate_norm.cu").read_text()
+    built = {tuple(map(int, m)) for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", src)}
+    for vec in (1, 2, 4, 8):
+        for d in [*range(vec, 2048, 7 * vec), 2048, 4096, 8192, gn.MAX_D]:
+            tx, rows, items = gn.launch_shape(d, vec)
+            assert tx * items * vec >= d and vec * items <= gn.EPT and tx * rows <= 1024
+            bound = 256 if tx * rows <= 256 else 512 if tx * rows <= 512 else 1024
+            assert (vec, items, bound) in built, (d, vec, shape)
+
+
+def test_gate_norm_loads_as_wide_as_the_views_allow():
+    """The load width (elements) for mamba_forward's views at each model's
+    widths: 8 (16 bytes) where every row and base is 16-byte aligned, less
+    where a row stride or a base is not."""
+    for arch in ("mamba2-370m", "granite-4.0-h-small", "jamba-1.5-large-398b"):
+        cfg = get_config(arch)
+        d, H, GN = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_groups * cfg.ssm_state
+        z = torch.empty(1, 2, 2 * d + 2 * GN + H, dtype=torch.bfloat16)[..., :d]
+        xs = torch.empty(1, 2, d + 2 * GN, dtype=torch.bfloat16)[..., :d].reshape(1, 2, H, -1)
+        y = torch.empty(1, 2, H, d // H)
+        assert gn._vec(d, d // H, (y, *gn._rows(y, "y")), (xs, *gn._rows(xs, "xs")),
+                       (z, *gn._rows(z, "z"))) == 8, arch
+    cfg = get_config("mamba2-370m").reduced()  # z's rows are 548 elements: 8-byte aligned
+    d, H, GN = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_groups * cfg.ssm_state
+    z = torch.empty(1, 2, 2 * d + 2 * GN + H, dtype=torch.bfloat16)[..., :d]
+    assert gn._vec(d, d // H, (z, *gn._rows(z, "z"))) == 4
+    off = torch.empty(1, 2, d + 1, dtype=torch.bfloat16)[..., 1:]  # a base 2 bytes off
+    assert gn._vec(d, d // H, (off, *gn._rows(off, "z"))) == 1
